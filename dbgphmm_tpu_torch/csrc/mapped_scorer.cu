@@ -1,9 +1,21 @@
-// Mapped log-space candidate scorer (K1) for NVIDIA Hopper (sm_90a).
+// Mapped log-space candidate scorers (K1 and K2) for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel dbgphmm_tpu/ops/pallas_mapped.py:
-// _make_kernel_log_packed (launched by pallas_mapped_scores_packed).  It
-// computes, for every (candidate c, read b), log P(read b | copy numbers of
-// candidate c): a log-space profile-HMM forward pass restricted to the read's
+// K1, dbg_mapped_scores_log, replaces the Pallas TPU kernel
+// dbgphmm_tpu/ops/pallas_mapped.py:_make_kernel_log_packed (:718, launched
+// by pallas_mapped_scores_packed).  K2, dbg_mapped_scores_log_single,
+// replaces _make_kernel_log (:488, pallas_mapped_scores(space="log")): the
+// same recursion, one candidate per grid row.  On Hopper both are one
+// template, mapped_scores_log_kernel<RENORM_EVERY>: K1 runs G candidates per
+// block and renormalises every 2 positions, K2 one candidate per block and
+// every position.  K2 keeps the TPU kernel's per-candidate shape, but not
+// its float32 Begin chain (carried as log scalars shifted by the M maximum
+// every step, which loses whole nats on 10 kb reads): like K1 it uses the
+// closed-form chain and the largest-live-state shift below, and computes
+// the end state once from the frozen tables where the TPU kernel recomputes
+// it at every valid step.
+//
+// The kernel computes, for every (candidate c, read b), log P(read b | copy
+// numbers of candidate c): a log-space profile-HMM forward pass restricted to the read's
 // A mapped slots per position, with M/I/D states, D parent columns,
 // n_max_gaps rounds of deletion closure and a Begin re-entry chain kept as
 // log scalars.  Candidates differ only through eff[c, :] (copy numbers over
@@ -30,6 +42,9 @@
 //   * Each block stops at its read's length (the TPU kernel masks every
 //     step instead), and the end state is computed once from the frozen
 //     tables after the last step.
+//   * K2 is the G = 1 case; its per-position renormalisation adds one
+//     row-max (a barrier when a row is more than one warp) to every
+//     position instead of every other.
 //
 // What bounds it on this card.  Not HBM bytes: at the production shapes
 // (L = 10k, B ~ 100, A = 32, D = 3) the int32 streams are ~1.6 GB and are
@@ -44,18 +59,12 @@
 // Build (done by dbgphmm_tpu_torch/ops/_build.py at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libmapped_scorer.so mapped_scorer.cu
+// (mapped_common.cuh holds the stream copy, reductions and smem layout
+// shared with K3, mapped_scorer_linear.cu.)
 
-#include <cuda_pipeline_primitives.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mapped_common.cuh"
 
 namespace {
-
-constexpr float NEGF = -1e30f;  // finite log(0) sentinel (TPU kernel's NEGF)
-constexpr float LOW = -3.0e38f;  // below any real value, for masked maxima
-constexpr int DMAX = 5;          // widest degree bucket of the PHMM template
-constexpr int RENORM_EVERY = 2;  // renormalise every 2 positions (as K1)
 
 __device__ __forceinline__ float ladd(float a, float b) {
     float mx = fmaxf(a, b);
@@ -78,87 +87,9 @@ __device__ __forceinline__ float gather_deg(const float* row, const int* idx,
     return out;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-// Reduce v over the candidate row (AP threads = NW warps).  For NW > 1 the
-// partials go through red[NW] and a block barrier; every thread of the block
-// must call this (uniform control flow).
-__device__ __forceinline__ float row_max(float v, float* red, int NW, int lane,
-                                         int warp) {
-    v = warp_max(v);
-    if (NW == 1) return v;
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    float r = red[0];
-    for (int w = 1; w < NW; ++w) r = fmaxf(r, red[w]);
-    return r;
-}
-
-__device__ __forceinline__ float row_sum(float v, float* red, int NW, int lane,
-                                         int warp) {
-    v = warp_sum(v);
-    if (NW == 1) return v;
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    float r = 0.f;
-    for (int w = 0; w < NW; ++w) r += red[w];
-    return r;
-}
-
-struct Streams {
-    const int* codes;  // [L, B]
-    const int* emis;   // [L, B, A]
-    const int* numce;  // [L, B, A]
-    const int* selfp;  // [L, B, A]
-    const int* prevp;  // [L, D, B, A]
-    const int* curp;   // [L, D, B, A]
-    const int* dence;  // [L, D, B, A]
-};
-
-// Shared stream row of one position: [emis | numce | selfp | prevp x D |
-// curp x D | dence x D] each AP wide, then the read base.
-__device__ __forceinline__ void issue_stream_copy(int* dst, const Streams& s,
-                                                  int t, int b, int B, int A,
-                                                  int D, int AP, int tid,
-                                                  int nthreads) {
-    const int nseg = 3 + 3 * D;
-    const int n = nseg * A + 1;
-    for (int k = tid; k < n; k += nthreads) {
-        const int* src;
-        int* d_ptr;
-        if (k == nseg * A) {
-            src = s.codes + (size_t)t * B + b;
-            d_ptr = dst + nseg * AP;
-        } else {
-            int seg = k / A, a = k - seg * A;
-            d_ptr = dst + seg * AP + a;
-            if (seg < 3) {
-                const int* base = seg == 0 ? s.emis : (seg == 1 ? s.numce : s.selfp);
-                src = base + ((size_t)t * B + b) * A + a;
-            } else {
-                int kind = (seg - 3) / D, d = (seg - 3) - kind * D;
-                const int* base = kind == 0 ? s.prevp : (kind == 1 ? s.curp : s.dence);
-                src = base + (((size_t)t * D + d) * B + b) * A + a;
-            }
-        }
-        __pipeline_memcpy_async(d_ptr, src, sizeof(int));
-    }
-    __pipeline_commit();
-}
-
-__global__ void mapped_scores_log_kernel(
+// RENORM_EVERY: renormalise every 2 positions (K1) or every position (K2).
+template <int RENORM_EVERY>
+__global__ void __launch_bounds__(MAX_THREADS) mapped_scores_log_kernel(
     const float* __restrict__ eff,     // [C, NC]
     const float* __restrict__ linv,    // [C]  log(1 / total copy-weighted length)
     const int* __restrict__ lens,      // [B]
@@ -175,7 +106,7 @@ __global__ void mapped_scores_log_kernel(
     const int b = blockIdx.y;
     const int c = min(c0 + g, C - 1);  // tail rows recompute the last candidate
     const int nseg = 3 + 3 * D;
-    const int srow = ((nseg * AP + 1) + 3) & ~3;
+    const int srow = stream_row_ints(AP, D);
 
     float* s_eff = smem;                    // G * NC
     float* s_P = s_eff + (size_t)G * NC;    // G * AP: pre_m
@@ -236,29 +167,11 @@ __global__ void mapped_scores_log_kernel(
                               D, AP, tid, nthreads);
 
         const int x = row[nseg * AP];
-        int em = 9, nce = NC - 1, sp = -1;
-        int pp[DMAX], cp[DMAX];
-        float den = 0.f;
-#pragma unroll
-        for (int d = 0; d < DMAX; ++d) {
-            pp[d] = -1;
-            cp[d] = -1;
-        }
-        if (real) {
-            em = row[a];
-            nce = row[AP + a];
-            sp = row[2 * AP + a];
-#pragma unroll
-            for (int d = 0; d < DMAX; ++d) {
-                if (d < D) {
-                    pp[d] = row[(3 + d) * AP + a];
-                    cp[d] = row[(3 + D + d) * AP + a];
-                    den += effg[row[(3 + 2 * D + d) * AP + a]];
-                }
-            }
-        } else {
-            den = (float)D * effg[NC - 1];
-        }
+        const Slot sl = read_slot(row, effg, a, real, AP, D, NC);
+        const int em = sl.em, nce = sl.nce, sp = sl.sp;
+        const int* pp = sl.pp;
+        const int* cp = sl.cp;
+        const float den = sl.den;
         const float num = effg[nce];
         const bool ok_t = (num > 0.f) && (den > 0.f);
         const float l_num = logf(fmaxf(num, 1e-38f));
@@ -328,19 +241,13 @@ __global__ void mapped_scores_log_kernel(
 
 extern "C" {
 
-// Threads per candidate row: A rounded up to whole warps.
-static int slots_padded(int A) { return A < 32 ? 32 : ((A + 31) / 32) * 32; }
-
 // Dynamic shared memory (bytes) of one block.
 size_t dbg_mapped_scores_log_smem(int NC, int A, int D, int G) {
-    int AP = slots_padded(A);
-    int nseg = 3 + 3 * D;
-    int srow = ((nseg * AP + 1) + 3) & ~3;
-    size_t floats = (size_t)G * NC + 4 * (size_t)G * AP + (size_t)G * (AP / 32) + 16;
-    return floats * sizeof(float) + 2 * (size_t)srow * sizeof(int);
+    return mapped_smem_bytes(NC, A, D, G);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// K1: G candidates per block, renormalised every 2 positions.  Launches on
+// `stream`; returns the cudaError_t of the launch (0 = success).
 int dbg_mapped_scores_log(const float* eff, const float* linv, const int* lens,
                           const int* codes, const int* emis, const int* numce,
                           const int* selfp, const int* prevp, const int* curp,
@@ -348,22 +255,24 @@ int dbg_mapped_scores_log(const float* eff, const float* linv, const int* lens,
                           int C, int NC, int L, int B, int A, int D,
                           int n_max_gaps, int G, void* stream) {
     (void)L;
-    if (C <= 0 || B <= 0) return 0;
-    if (D < 1 || D > DMAX || A < 1 || A > 1024 || G < 1)
-        return (int)cudaErrorInvalidValue;
-    int AP = slots_padded(A);
-    if (AP * G > 1024) return (int)cudaErrorInvalidValue;
-    size_t smem = dbg_mapped_scores_log_smem(NC, A, D, G);
-    cudaError_t err = cudaFuncSetAttribute(
-        mapped_scores_log_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
     Streams s{codes, emis, numce, selfp, prevp, curp, dence};
-    dim3 grid((C + G - 1) / G, B);
-    dim3 block(AP, G);
-    mapped_scores_log_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-        eff, linv, lens, s, lt_lin, out, C, NC, B, A, D, n_max_gaps);
-    return (int)cudaGetLastError();
+    return launch_mapped(mapped_scores_log_kernel<2>, eff, linv, lens, s,
+                         lt_lin, out, C, NC, B, A, D, n_max_gaps, G, stream);
+}
+
+// K2: one candidate per block, renormalised at every position.
+int dbg_mapped_scores_log_single(const float* eff, const float* linv,
+                                 const int* lens, const int* codes,
+                                 const int* emis, const int* numce,
+                                 const int* selfp, const int* prevp,
+                                 const int* curp, const int* dence,
+                                 const float* lt_lin, float* out, int C,
+                                 int NC, int L, int B, int A, int D,
+                                 int n_max_gaps, void* stream) {
+    (void)L;
+    Streams s{codes, emis, numce, selfp, prevp, curp, dence};
+    return launch_mapped(mapped_scores_log_kernel<1>, eff, linv, lens, s,
+                         lt_lin, out, C, NC, B, A, D, n_max_gaps, 1, stream);
 }
 
 const char* dbg_cuda_error_string(int err) {

@@ -4,18 +4,19 @@
 PyTorch counterpart of ``dbgphmm_tpu/multi_dbg/posterior.py``.  The score
 of an assignment X is ``P(X|R) ∝ P(R|X) · P(G) · #EulerCircuits(X)``: the
 read likelihoods come from :class:`~dbgphmm_tpu_torch.ops.mapped_scorer.
-MappedScorer` (the K1 CUDA kernel on a GPU, its float64 twin on the CPU),
-the prior and the Euler count from the JAX package's host code.
+MappedScorer` (a CUDA kernel on a GPU, its float64 twin on the CPU), the
+prior and the Euler count from the JAX package's host code.
 
 What is ported: mapping generation by exact-match seeding plus the
 hint-constrained refine (graphs of more than ``DENSE_COMPUTE_MAX_NODES``
-full edges, or any graph given a ``hint``), candidate scoring with one
-scorer, the greedy hill climb, purge + extension, and the k-extension loop.
-What is not: the dense and sparse-adaptive from-scratch decodes that serve
-smaller graphs (ROADMAP 'Modules to port', items 7 and 8) — such a call
-raises ``NotImplementedError`` instead of taking another route — and the
-TPU-specific crash/revival machinery, the log-sibling rescue and the XLA
-fallback scorer of the JAX module.
+full edges, or any graph given a ``hint``), candidate scoring in the
+scorer's three spaces with the linear-to-log rescue, the greedy hill
+climb, purge + extension, and the k-extension loop.  What is not: the
+dense and sparse-adaptive from-scratch decodes that serve smaller graphs
+(ROADMAP 'Modules to port', items 7 and 8) — such a call raises
+``NotImplementedError`` instead of taking another route — and the
+TPU-specific crash/revival machinery and the XLA fallback scorer of the
+JAX module.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ class StageTimes:
     setup_s: float = 0.0  # template, positions, scorer streams
     score_s: float = 0.0  # read likelihoods of candidates (device)
     n_scorings: int = 0  # candidates x reads scored
+    n_rescued: int = 0  # linear-space candidates rescored in log space
     wall_s: float = 0.0
 
     def as_dict(self) -> dict:
@@ -410,6 +412,14 @@ class _CompactFlow:
         return int(cn @ self.size)
 
 
+def make_scorer(template, positions, codes, lens, params, device,
+                 space: str = "packed") -> MappedScorer:
+    """The candidate scorer of one k-stage (ref: ``make_pallas_scorer``):
+    K1 ("packed", the default), K2 ("log") or K3 ("linear")."""
+    return MappedScorer(template, positions, codes, lens, params, device,
+                        space=space)
+
+
 def score_candidates(
     dbg: MultiDbg,
     candidates: List[List[int]],
@@ -420,13 +430,25 @@ def score_candidates(
 ) -> List[Score]:
     """Score a batch of copy-number candidates: read likelihoods from the
     scorer (one call for the whole batch), prior and incremental Euler
-    counts on the host."""
+    counts on the host.
+
+    A linear-space scorer underflows to -inf on reads forced across copy-0
+    edges; every candidate it flags is rescored by its log-space sibling,
+    whose very low but finite sums steer the early climb.  A log-space
+    -inf is exact, so "log" and "packed" results are never rescored."""
     t0 = time.perf_counter()
-    lls, _ok = scorer.scores_detailed(candidates)
+    lls, ok = scorer.scores_detailed(candidates)
+    bad = (np.flatnonzero(~ok) if scorer.space == "linear"
+           else np.empty(0, dtype=np.int64))
+    if bad.size:
+        exact, _ = scorer.log_sibling().scores_detailed(
+            [candidates[i] for i in bad])
+        lls[bad] = exact
     t_like = time.perf_counter() - t0
     if times is not None:
         times.score_s += t_like
-        times.n_scorings += len(candidates) * scorer.n_reads
+        times.n_scorings += (len(candidates) + bad.size) * scorer.n_reads
+        times.n_rescued += int(bad.size)
 
     scores = []
     flow = _CompactFlow(dbg)
@@ -465,10 +487,12 @@ def sample_posterior(
     rescue_only: bool = True,
     verbose: bool = False,
     times: Optional[StageTimes] = None,
+    scorer_space: str = "packed",
 ) -> Posterior:
     """Greedy hill climb from the DBG's copy numbers: score rescue (and,
     with ``rescue_only=False``, short/long/reducer) neighbours, move to the
-    best, repeat up to ``max_iter`` moves."""
+    best, repeat up to ``max_iter`` moves.  ``scorer_space`` picks the
+    scorer's kernel (:func:`make_scorer`)."""
     if mappings is None:
         raise NotImplementedError(
             "scoring without mappings (batch scoring, ROADMAP 'Modules to "
@@ -502,8 +526,8 @@ def sample_posterior(
     positions = precompute_positions(
         map_nodes, template.parent_idx, parent_exists=template.parent_exists
     )
-    scorer = MappedScorer(template, positions, codes, lens, template.params,
-                          device)
+    scorer = make_scorer(template, positions, codes, lens, template.params,
+                         device, space=scorer_space)
     _sync(device)
     t_setup = time.perf_counter() - t0
     if times is not None:
@@ -660,6 +684,7 @@ def infer_posterior_by_extension(
     verbose: bool = False,
     use_hint_mappings: bool = True,
     stage_times: Optional[List[StageTimes]] = None,
+    scorer_space: str = "packed",
 ):
     """Per k: hill-climb the copy numbers, purge likely-zero edges, extend
     to k+1, regenerate mappings, re-initialise copy numbers from mapping
@@ -667,7 +692,8 @@ def infer_posterior_by_extension(
     parameters.  Returns (dbg, posterior, paths, mappings).
 
     ``stage_times`` (a list) receives one :class:`StageTimes` per k-stage
-    and one for the final pass (``k`` = -1)."""
+    and one for the final pass (``k`` = -1).  ``scorer_space`` is passed to
+    every :func:`sample_posterior`."""
     log = (lambda *a: print("[infer]", *a)) if verbose else (lambda *a: None)
     device = torch.device(device)
     dbg = dbg_init.copy()
@@ -693,6 +719,7 @@ def infer_posterior_by_extension(
             dbg, param_infer, reads, mappings, genome_size_expected,
             genome_size_sigma, device, neighbor_config, max_iter,
             rescue_only=True, verbose=verbose, times=times,
+            scorer_space=scorer_space,
         )
         dbg.set_copy_nums(posterior.max_copy_nums())
         log(f"k={dbg.k} posterior sampled in {time.perf_counter()-t0:.1f}s "
@@ -769,6 +796,7 @@ def infer_posterior_by_extension(
         dbg, param_error, reads, mappings, genome_size_expected,
         genome_size_sigma, device, neighbor_config, max_iter,
         rescue_only=False, verbose=verbose, times=times,
+        scorer_space=scorer_space,
     )
     dbg.set_copy_nums(posterior.max_copy_nums())
     close_stage(-1)

@@ -1,19 +1,23 @@
 """Build and load the port's native libraries at first use.
 
-Both libraries are compiled from sources in the checkout into
+The libraries are compiled from sources in the checkout into
 ``dbgphmm_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ctypes; nothing is built when a module is imported.
 
-* ``libmapped_scorer_<hash>.so`` — the K1 scorer, ``csrc/mapped_scorer.cu``,
-  compiled with ``nvcc`` for ``sm_90a`` (Hopper).  It has a plain C
-  interface: pointers and the CUDA stream travel as ``c_void_p``.
+* ``libmapped_scorer_<hash>.so`` — the K1 and K2 scorers,
+  ``csrc/mapped_scorer.cu``, compiled with ``nvcc`` for ``sm_90a``
+  (Hopper).  It has a plain C interface: pointers and the CUDA stream
+  travel as ``c_void_p``.
+* ``libmapped_scorer_linear_<hash>.so`` — the K3 scorer,
+  ``csrc/mapped_scorer_linear.cu``, built the same way.  Both CUDA sources
+  include ``csrc/mapped_common.cuh``.
 * ``libdbgpos_<hash>.so`` — the slot-position builder ``cpp/positions.cpp``
   of the JAX package, compiled with ``g++`` into the port's own build
   directory (the JAX package's copy next to its sources is never touched).
 
 The source hash in the file name keeps a stale build from being loaded
 after an edit.  A failed build raises with the compiler's output; there is
-no fallback.
+no fallback.  :func:`build_all` runs the three compilers at once.
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 REPO = PKG.parent
 BUILD_DIR = PKG / "build"
 SCORER_SRC = PKG / "csrc" / "mapped_scorer.cu"
+LINEAR_SRC = PKG / "csrc" / "mapped_scorer_linear.cu"
+COMMON_HDR = PKG / "csrc" / "mapped_common.cuh"
 POSITIONS_SRC = REPO / "cpp" / "positions.cpp"
 
 NVCC_FLAGS = [
@@ -42,19 +49,22 @@ _LIBS: dict = {}
 BUILD_LOG: dict = {}  # library name -> {"seconds": float, "output": str}
 
 
-def _tag(src: Path, flags) -> str:
-    h = hashlib.sha256(src.read_bytes())
+def _tag(srcs, flags) -> str:
+    h = hashlib.sha256()
+    for src in srcs:
+        h.update(src.read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:12]
 
 
-def _compile(cmd_of, src: Path, stem: str, flags) -> Path:
-    """Compile ``src`` to ``build/<stem>_<hash>.so`` unless it exists.
+def _compile(cmd_of, srcs, stem: str, flags) -> Path:
+    """Compile to ``build/<stem>_<hash>.so`` unless it exists; ``srcs`` are
+    every file the build reads (sources and headers), hashed into the name.
 
     The compiler writes to a temporary name that is renamed into place, so
     concurrent test workers never load a half-written library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{stem}_{_tag(src, flags)}.so"
+    so = BUILD_DIR / f"{stem}_{_tag(srcs, flags)}.so"
     if so.exists():
         BUILD_LOG.setdefault(stem, {"seconds": 0.0, "output": "(cached)"})
         return so
@@ -65,7 +75,7 @@ def _compile(cmd_of, src: Path, stem: str, flags) -> Path:
         res = subprocess.run(cmd_of(tmp), capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"building {src.name} failed (rc={res.returncode}):\n"
+                f"building {srcs[0].name} failed (rc={res.returncode}):\n"
                 f"{res.stdout}\n{res.stderr}"
             )
         os.replace(tmp, so)
@@ -82,28 +92,47 @@ def nvcc_path() -> str:
     if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
         nvcc = "/usr/local/cuda/bin/nvcc"
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the K1 scorer needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the CUDA scorers need the CUDA "
+                           "toolkit")
     return nvcc
 
 
+def _cuda_lib(src: Path, stem: str, entries) -> ctypes.CDLL:
+    """Build ``src`` with nvcc and bind ``entries``: {name: (restype,
+    argtypes)}, plus ``dbg_cuda_error_string``."""
+    nvcc = nvcc_path()
+    so = _compile(lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(src)],
+                  [src, COMMON_HDR], stem, NVCC_FLAGS)
+    lib = ctypes.CDLL(str(so))
+    entries = dict(entries, dbg_cuda_error_string=(ctypes.c_char_p,
+                                                   [ctypes.c_int]))
+    for name, (restype, argtypes) in entries.items():
+        getattr(lib, name).restype = restype
+        getattr(lib, name).argtypes = argtypes
+    return lib
+
+
 def mapped_scorer_lib() -> ctypes.CDLL:
-    """The compiled K1 scorer (built on first call)."""
+    """The compiled K1 and K2 scorers (built on first call)."""
     if "scorer" not in _LIBS:
-        nvcc = nvcc_path()
-        so = _compile(
-            lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(SCORER_SRC)],
-            SCORER_SRC, "libmapped_scorer", NVCC_FLAGS,
-        )
-        lib = ctypes.CDLL(str(so))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.dbg_mapped_scores_log.restype = i32
-        lib.dbg_mapped_scores_log.argtypes = [vp] * 12 + [i32] * 8 + [vp]
-        lib.dbg_mapped_scores_log_smem.restype = ctypes.c_size_t
-        lib.dbg_mapped_scores_log_smem.argtypes = [i32] * 4
-        lib.dbg_cuda_error_string.restype = ctypes.c_char_p
-        lib.dbg_cuda_error_string.argtypes = [i32]
-        _LIBS["scorer"] = lib
+        _LIBS["scorer"] = _cuda_lib(SCORER_SRC, "libmapped_scorer", {
+            "dbg_mapped_scores_log": (i32, [vp] * 12 + [i32] * 8 + [vp]),
+            "dbg_mapped_scores_log_single": (i32, [vp] * 12 + [i32] * 7 + [vp]),
+            "dbg_mapped_scores_log_smem": (ctypes.c_size_t, [i32] * 4),
+        })
     return _LIBS["scorer"]
+
+
+def mapped_scorer_linear_lib() -> ctypes.CDLL:
+    """The compiled K3 scorer (built on first call)."""
+    if "linear" not in _LIBS:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        _LIBS["linear"] = _cuda_lib(LINEAR_SRC, "libmapped_scorer_linear", {
+            "dbg_mapped_scores_linear": (i32, [vp] * 12 + [i32] * 8 + [vp]),
+            "dbg_mapped_scores_linear_smem": (ctypes.c_size_t, [i32] * 4),
+        })
+    return _LIBS["linear"]
 
 
 def positions_lib() -> ctypes.CDLL:
@@ -114,7 +143,7 @@ def positions_lib() -> ctypes.CDLL:
         flags = ["-O3", "-shared", "-fPIC"]
         so = _compile(
             lambda out: ["g++", *flags, str(POSITIONS_SRC), "-o", out],
-            POSITIONS_SRC, "libdbgpos", flags,
+            [POSITIONS_SRC], "libdbgpos", flags,
         )
         lib = ctypes.CDLL(str(so))
         lib.dbg_precompute_positions.restype = ctypes.c_int
@@ -127,3 +156,12 @@ def positions_lib() -> ctypes.CDLL:
         ]
         _LIBS["positions"] = lib
     return _LIBS["positions"]
+
+
+def build_all() -> None:
+    """Build every native library at once, one compiler process each."""
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(fn) for fn in (mapped_scorer_lib,
+                                             mapped_scorer_linear_lib,
+                                             positions_lib)]:
+            f.result()

@@ -1,5 +1,5 @@
-"""Candidate scorer over mapped read streams: host stream build, the K1
-CUDA kernel's wrapper, its plain PyTorch twin, and the scorer class.
+"""Candidate scorer over mapped read streams: host stream build, the three
+CUDA kernels' wrappers, their plain PyTorch twins, and the scorer class.
 
 Counterpart of ``dbgphmm_tpu/ops/pallas_mapped.py``.  That module imports
 JAX, so its numpy host code is copied here rather than imported:
@@ -7,9 +7,13 @@ JAX, so its numpy host code is copied here rather than imported:
 ``eff_tables`` (:291) and the read sort, read chunking, degree unification
 and NC trim of ``PallasMappedScorer.__init__`` (:1342-1470).
 
-The kernel: :func:`mapped_scores_log` launches ``csrc/mapped_scorer.cu``,
-the Hopper port of the Pallas kernel ``_make_kernel_log_packed``.  For
-tensors on the CPU it runs :func:`mapped_scores_log_reference`, the same
+The kernels, each the Hopper port of a Pallas kernel, with its twin:
+
+    K1 mapped_scores_log         _make_kernel_log_packed (:718)  csrc/mapped_scorer.cu
+    K2 mapped_scores_log_single  _make_kernel_log (:488)         csrc/mapped_scorer.cu
+    K3 mapped_scores_linear      _make_kernel (:298)             csrc/mapped_scorer_linear.cu
+
+For tensors on the CPU a wrapper runs its twin (``*_reference``), the same
 recursion in plain PyTorch; for CUDA tensors it launches the kernel or
 raises.  The TPU-only machinery of the Pallas scorer (lane packing P, the
 CL / vmem_div back-off ladder, the launch watchdog, crash dumps) has no
@@ -28,8 +32,9 @@ Stream layouts (position-major, the D axis split out):
 
 from __future__ import annotations
 
+import copy
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -180,8 +185,14 @@ def eff_tables(streams: MappedStreams, copy_num_candidates
                ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-candidate linear copy-number tables + 1/total_eff."""
     eff, total = _eff_matrix(streams, copy_num_candidates)
-    inv_total = np.where(total > 0, 1.0 / np.maximum(total, 1e-30), 0.0)
-    return eff, inv_total.astype(np.float32)[:, None]
+    return eff, lin_inv_total(total).astype(np.float32)[:, None]
+
+
+def lin_inv_total(total: np.ndarray) -> np.ndarray:
+    """1 / total, 0 for an empty assignment (K3's ``inv_total``), in
+    float64."""
+    total = np.asarray(total, dtype=np.float64)
+    return np.where(total > 0, 1.0 / np.maximum(total, 1e-30), 0.0)
 
 
 def log_inv_total(total: np.ndarray) -> np.ndarray:
@@ -218,6 +229,37 @@ def mapped_scores_log_reference(eff, linv, lens, codes, emis, numce, selfp,
     docstring; lt_lin [13] linear probabilities.  Returns [C, B] per-read
     log-likelihoods (-inf where the read is unexplainable)."""
     mapped_scores_log_reference.calls += 1
+    return _log_recursion(eff, linv, lens, codes, emis, numce, selfp, prevp,
+                          curp, dence, lt_lin, n_max_gaps, RENORM_EVERY)
+
+
+mapped_scores_log_reference.calls = 0
+
+
+def mapped_scores_log_single_reference(eff, linv, lens, codes, emis, numce,
+                                       selfp, prevp, curp, dence, lt_lin,
+                                       n_max_gaps: int = 4) -> torch.Tensor:
+    """Plain PyTorch version of the K2 kernel (the TPU's ``_make_kernel_log``):
+    K1's recursion renormalised at every position.  Arguments and result as
+    :func:`mapped_scores_log_reference`.
+
+    The TPU kernel carries the Begin chain as renormalised log scalars and
+    shifts by the M maximum alone; that loses whole nats in float32 (ROADMAP
+    "Faults found").  Like K1, this computes the chain in closed form and
+    shifts by the largest live state; the end state comes once from the
+    frozen tables, the value the TPU kernel reaches by recomputing it at
+    every valid step."""
+    mapped_scores_log_single_reference.calls += 1
+    return _log_recursion(eff, linv, lens, codes, emis, numce, selfp, prevp,
+                          curp, dence, lt_lin, n_max_gaps, 1)
+
+
+mapped_scores_log_single_reference.calls = 0
+
+
+def _log_recursion(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
+                   dence, lt_lin, n_max_gaps: int, renorm_every: int
+                   ) -> torch.Tensor:
     dt, dev = eff.dtype, eff.device
     C = eff.shape[0]
     L, D, B, A = prevp.shape
@@ -284,7 +326,7 @@ def mapped_scores_log_reference(eff, linv, lens, codes, emis, numce, selfp,
             d_new = _ladd(d_new, fdt)
 
         off_new, off_c_new = off, off_c
-        if t % RENORM_EVERY == RENORM_EVERY - 1:
+        if t % renorm_every == renorm_every - 1:
             # the largest live state (see the kernel): M, I, D, Begin chain
             shift = torch.maximum(torch.maximum(m_new, i_new), d_new)
             shift = torch.maximum(shift.amax(dim=-1, keepdim=True), ib_new)
@@ -311,48 +353,139 @@ def mapped_scores_log_reference(eff, linv, lens, codes, emis, numce, selfp,
     return score[..., 0]
 
 
-mapped_scores_log_reference.calls = 0
+def mapped_scores_linear_reference(eff, inv_total, lens, codes, emis, numce,
+                                   selfp, prevp, curp, dence, lt_lin,
+                                   n_max_gaps: int = 4) -> torch.Tensor:
+    """Plain PyTorch version of the K3 kernel (the TPU's ``_make_kernel``,
+    the scaled-linear form of ``ops/sparse.py:_s_step_lin``), op for op, for
+    all candidates and reads at once, in ``eff.dtype`` on ``eff.device``.
+
+    Tables are linear and multiply-add only; every position scales them by
+    the M maximum and adds its log to a Kahan-summed offset.  inv_total [C]
+    is the LINEAR 1/total (0 for an empty assignment); the other arguments
+    and the result as :func:`mapped_scores_log_reference`.  A read forced
+    across a copy-0 edge underflows to -inf here where the log-space
+    recursions stay finite; ``MappedScorer`` flags it for the rescue."""
+    mapped_scores_linear_reference.calls += 1
+    dt, dev = eff.dtype, eff.device
+    C = eff.shape[0]
+    L, D, B, A = prevp.shape
+    (pMM, pIM, pDM, pMI, pII, pDI, pMD, pID, pDD,
+     p_match, p_mismatch, p_random, p_end) = lt_lin.to(device=dev, dtype=dt).unbind()
+    zeros = lambda shape: torch.zeros(shape, dtype=dt, device=dev)
+    m = i = d = zeros((C, B, A))
+    mb, ib = torch.ones((C, B, 1), dtype=dt, device=dev), zeros((C, B, 1))
+    off, off_c = zeros((C, B, 1)), zeros((C, B, 1))
+    invt = inv_total.to(dt).reshape(C, 1, 1)
+
+    def gather_sum(tab, idxs):
+        out = None
+        for idx in idxs:
+            g = torch.gather(tab, 2, idx.clamp(min=0).expand(C, B, A))
+            g = torch.where(idx >= 0, g, 0.0)
+            out = g if out is None else out + g
+        return out
+
+    n_steps = int(lens.max()) if B else 0
+    for t in range(n_steps):
+        valid = (t < lens).reshape(1, B, 1)
+        x = codes[t].long()
+        em = emis[t].long()
+        num = eff[:, numce[t].long()]
+        den = eff[:, dence[t, 0].long()]
+        for dd in range(1, D):
+            den = den + eff[:, dence[t, dd].long()]
+        t_val = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+        init_p = num * invt
+        p_emit = torch.where(em == x[:, None], p_match, p_mismatch)
+        p_emit = torch.where(em < 4, p_emit, 0.0)
+        pp = [prevp[t, dd].long() for dd in range(D)]
+        cp = [curp[t, dd].long() for dd in range(D)]
+
+        inner = gather_sum(pMM * m + pIM * i + pDM * d, pp)
+        from_begin = init_p * (pMM * mb + pIM * ib)
+        m_new = p_emit * (t_val * inner + from_begin)
+        i_new = p_random * gather_sum(pMI * m + pII * i + pDI * d,
+                                      [selfp[t].long()])
+        mb_new = torch.zeros_like(mb)
+        ib_new = p_random * (pMI * mb + pII * ib)
+
+        acc = gather_sum(pMD * m_new + pID * i_new, cp)
+        d_new = t_val * acc + init_p * (pMD * mb_new + pID * ib_new)
+        fdt = d_new
+        for _ in range(n_max_gaps):
+            fdt = t_val * (pDD * gather_sum(fdt, cp))
+            d_new = d_new + fdt
+
+        scale = m_new.amax(dim=-1, keepdim=True)
+        scale = torch.where((scale > 0) & valid, scale, 1.0)
+        inv = 1.0 / scale
+        m_new, i_new, d_new = m_new * inv, i_new * inv, d_new * inv
+        ib_new = ib_new * inv
+        y = torch.log(scale) - off_c
+        tt = off + y
+        off_c_new = (tt - off) - y
+        m = torch.where(valid, m_new, m)
+        i = torch.where(valid, i_new, i)
+        d = torch.where(valid, d_new, d)
+        mb = torch.where(valid, mb_new, mb)
+        ib = torch.where(valid, ib_new, ib)
+        off = torch.where(valid, tt, off)
+        off_c = torch.where(valid, off_c_new, off_c)
+
+    # end state from the frozen tables (the TPU kernel recomputes it at
+    # every valid step): P = p_end * sum(M + I + D) * exp(offset)
+    e = p_end * (m + i + d).sum(dim=-1, keepdim=True)
+    score = torch.where(e > 0, torch.log(torch.where(e > 0, e, 1.0)) + off,
+                        float("-inf"))
+    return score[..., 0]
 
 
-# -- the K1 kernel ------------------------------------------------------------
+mapped_scores_linear_reference.calls = 0
 
 
-def _check_inputs(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
-                  dence, lt_lin):
+# -- the kernels --------------------------------------------------------------
+
+
+def _check_inputs(where, eff, inv, lens, codes, emis, numce, selfp, prevp,
+                  curp, dence, lt_lin):
     dev = eff.device
-    named = dict(eff=eff, linv=linv, lens=lens, codes=codes, emis=emis,
+    if dev.type != "cuda":
+        raise ValueError(f"{where} runs on cpu or cuda, not {dev}")
+    named = dict(eff=eff, inv=inv, lens=lens, codes=codes, emis=emis,
                  numce=numce, selfp=selfp, prevp=prevp, curp=curp,
                  dence=dence, lt_lin=lt_lin)
     for name, t in named.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, eff on {dev}")
+            raise ValueError(f"{where}: {name} is on {t.device}, eff on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        want = torch.float32 if name in ("eff", "linv", "lt_lin") else torch.int32
+            raise ValueError(f"{where}: {name} must be contiguous")
+        want = torch.float32 if name in ("eff", "inv", "lt_lin") else torch.int32
         if t.dtype != want:
-            raise ValueError(f"{name} must be {want}, got {t.dtype}")
+            raise ValueError(f"{where}: {name} must be {want}, got {t.dtype}")
     C, NC = eff.shape
     L, D, B, A = prevp.shape
-    shapes = dict(linv=(C,), lens=(B,), codes=(L, B), emis=(L, B, A),
+    shapes = dict(inv=(C,), lens=(B,), codes=(L, B), emis=(L, B, A),
                   numce=(L, B, A), selfp=(L, B, A), curp=(L, D, B, A),
                   dence=(L, D, B, A), lt_lin=(13,))
     for name, shape in shapes.items():
         if tuple(named[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(named[name].shape)}, "
-                             f"expected {shape}")
+            raise ValueError(f"{where}: {name} has shape "
+                             f"{tuple(named[name].shape)}, expected {shape}")
     if not 1 <= D <= 5 or not 1 <= A <= 1024:
-        raise ValueError(f"unsupported degree D={D} or width A={A}")
+        raise ValueError(f"{where}: unsupported degree D={D} or width A={A}")
 
 
-def _pick_group(lib, C: int, B: int, A: int, D: int, NC: int,
+def _pick_group(smem_fn, C: int, B: int, A: int, D: int, NC: int,
                 device: torch.device) -> int:
     """Candidates per block: as many as threads (<= 1024) and shared memory
-    allow, up to MAX_GROUP, but no more than keeps ~4 blocks per SM."""
+    allow, up to MAX_GROUP, but no more than keeps ~4 blocks per SM.
+    ``smem_fn(NC, A, D, G)`` is the kernel's shared memory per block."""
     ap = max(32, -(-A // 32) * 32)
     G = min(MAX_GROUP, 1024 // ap)
-    while G > 1 and lib.dbg_mapped_scores_log_smem(NC, A, D, G) > SMEM_OPTIN:
+    while G > 1 and smem_fn(NC, A, D, G) > SMEM_OPTIN:
         G //= 2
-    if lib.dbg_mapped_scores_log_smem(NC, A, D, G) > SMEM_OPTIN:
+    if smem_fn(NC, A, D, G) > SMEM_OPTIN:
         raise ValueError(f"eff table of {NC} compact edges does not fit in "
                          "shared memory")
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
@@ -361,10 +494,29 @@ def _pick_group(lib, C: int, B: int, A: int, D: int, NC: int,
     return G
 
 
+def _launch(what, lib, fn, args, n_max_gaps: int, *extra) -> torch.Tensor:
+    """Launch ``fn`` (a kernel's C entry point) on the current stream; raise
+    with the CUDA error string if the launch is refused."""
+    eff, prevp = args[0], args[7]
+    C, NC = eff.shape
+    L, D, B, A = prevp.shape
+    out = torch.empty((C, B), dtype=torch.float32, device=eff.device)
+    with torch.cuda.device(eff.device):
+        stream = torch.cuda.current_stream(eff.device).cuda_stream
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*args, out)]
+        rc = fn(*ptrs, C, NC, L, B, A, D, n_max_gaps, *extra,
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} launch failed: {lib.dbg_cuda_error_string(rc).decode()} "
+            f"(C={C} B={B} L={L} A={A} D={D} NC={NC} {extra})")
+    return out
+
+
 def mapped_scores_log(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
                       dence, lt_lin, n_max_gaps: int = 4,
                       group: Optional[int] = None) -> torch.Tensor:
-    """[C, B] per-read log P(read | candidate), rows in candidate order.
+    """K1: [C, B] per-read log P(read | candidate), rows in candidate order.
 
     CUDA tensors (eff/linv/lt_lin float32, streams and lens int32, all
     contiguous on one device) launch the K1 kernel on the current stream;
@@ -374,24 +526,13 @@ def mapped_scores_log(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
             lt_lin)
     if eff.device.type == "cpu":
         return mapped_scores_log_reference(*args, n_max_gaps=n_max_gaps)
-    if eff.device.type != "cuda":
-        raise ValueError(f"mapped_scores_log runs on cpu or cuda, not {eff.device}")
-    _check_inputs(*args)
+    _check_inputs("mapped_scores_log", *args)
+    lib = _build.mapped_scorer_lib()
     C, NC = eff.shape
     L, D, B, A = prevp.shape
-    lib = _build.mapped_scorer_lib()
-    G = group or _pick_group(lib, C, B, A, D, NC, eff.device)
-    out = torch.empty((C, B), dtype=torch.float32, device=eff.device)
-    with torch.cuda.device(eff.device):
-        stream = torch.cuda.current_stream(eff.device).cuda_stream
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*args, out)]
-        rc = lib.dbg_mapped_scores_log(
-            *ptrs, C, NC, L, B, A, D, n_max_gaps, G,
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(
-            f"K1 launch failed: {lib.dbg_cuda_error_string(rc).decode()} "
-            f"(C={C} B={B} L={L} A={A} D={D} NC={NC} G={G})")
+    G = group or _pick_group(lib.dbg_mapped_scores_log_smem, C, B, A, D, NC,
+                             eff.device)
+    out = _launch("K1", lib, lib.dbg_mapped_scores_log, args, n_max_gaps, G)
     mapped_scores_log.launches += 1
     return out
 
@@ -399,12 +540,74 @@ def mapped_scores_log(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
 mapped_scores_log.launches = 0
 
 
+def mapped_scores_log_single(eff, linv, lens, codes, emis, numce, selfp,
+                             prevp, curp, dence, lt_lin, n_max_gaps: int = 4
+                             ) -> torch.Tensor:
+    """K2: the same quantity as :func:`mapped_scores_log`, one candidate
+    per block, renormalised at every position.
+
+    CUDA tensors launch the K2 kernel (``dbg_mapped_scores_log_single`` of
+    ``csrc/mapped_scorer.cu``); CPU tensors run
+    :func:`mapped_scores_log_single_reference`."""
+    args = (eff, linv, lens, codes, emis, numce, selfp, prevp, curp, dence,
+            lt_lin)
+    if eff.device.type == "cpu":
+        return mapped_scores_log_single_reference(*args, n_max_gaps=n_max_gaps)
+    _check_inputs("mapped_scores_log_single", *args)
+    lib = _build.mapped_scorer_lib()
+    NC, (L, D, B, A) = eff.shape[1], prevp.shape
+    if lib.dbg_mapped_scores_log_smem(NC, A, D, 1) > SMEM_OPTIN:
+        raise ValueError(f"eff table of {NC} compact edges does not fit in "
+                         "shared memory")
+    out = _launch("K2", lib, lib.dbg_mapped_scores_log_single, args,
+                  n_max_gaps)
+    mapped_scores_log_single.launches += 1
+    return out
+
+
+mapped_scores_log_single.launches = 0
+
+
+def mapped_scores_linear(eff, inv_total, lens, codes, emis, numce, selfp,
+                         prevp, curp, dence, lt_lin, n_max_gaps: int = 4,
+                         group: Optional[int] = None) -> torch.Tensor:
+    """K3: [C, B] per-read log P(read | candidate) by the scaled-linear
+    recursion; -inf where float32 underflows (reads forced across copy-0
+    edges).  ``inv_total`` is the linear 1/total.
+
+    CUDA tensors launch the K3 kernel (``csrc/mapped_scorer_linear.cu``);
+    CPU tensors run :func:`mapped_scores_linear_reference`.  ``group``
+    forces the number of candidates per block."""
+    args = (eff, inv_total, lens, codes, emis, numce, selfp, prevp, curp,
+            dence, lt_lin)
+    if eff.device.type == "cpu":
+        return mapped_scores_linear_reference(*args, n_max_gaps=n_max_gaps)
+    _check_inputs("mapped_scores_linear", *args)
+    lib = _build.mapped_scorer_linear_lib()
+    C, NC = eff.shape
+    L, D, B, A = prevp.shape
+    G = group or _pick_group(lib.dbg_mapped_scores_linear_smem, C, B, A, D,
+                             NC, eff.device)
+    out = _launch("K3", lib, lib.dbg_mapped_scores_linear, args, n_max_gaps,
+                  G)
+    mapped_scores_linear.launches += 1
+    return out
+
+
+mapped_scores_linear.launches = 0
+
+
 # -- the scorer ---------------------------------------------------------------
 
 
+SPACES = ("packed", "log", "linear")
+
+
 class MappedScorer:
-    """Candidate scorer for one (k, mapping): the K1 kernel on CUDA, its
-    twin on the CPU (float64).
+    """Candidate scorer for one (k, mapping).  ``space`` picks the kernel,
+    as ``PallasMappedScorer(space=)`` does in the JAX package: "packed"
+    (K1, the default), "log" (K2) or "linear" (K3).  On CUDA the kernel
+    runs, on the CPU its twin (float64).
 
     Built once per k-stage from a PHMMTemplate and the mapping's
     MappedPositions; every call scores a batch of compact-edge copy-number
@@ -415,7 +618,11 @@ class MappedScorer:
     candidate count before the chunks are joined."""
 
     def __init__(self, template, positions, codes: np.ndarray,
-                 lens: np.ndarray, params, device, read_chunk: int = None):
+                 lens: np.ndarray, params, device, read_chunk: int = None,
+                 space: str = "packed"):
+        if space not in SPACES:
+            raise ValueError(f"space must be one of {SPACES}, not {space!r}")
+        self.space = space
         self.device = torch.device(device)
         self.dtype = default_dtype(self.device)
         self.n_max_gaps = params.n_max_gaps
@@ -519,18 +726,28 @@ class MappedScorer:
             .to(torch.int32).contiguous() for a in arrs
         )
 
+    def log_sibling(self) -> "MappedScorer":
+        """A ``space="log"`` scorer over the same uploaded streams (nothing
+        is uploaded again): the rescue of ``score_candidates``."""
+        sib = copy.copy(self)
+        sib.space = "log"
+        return sib
+
     def per_read(self, candidates: Sequence[Sequence[int]]) -> np.ndarray:
         """[C, B] float64 per-read log-likelihoods, reads in the ORIGINAL
         order."""
         C = len(candidates)
+        kernel = {"packed": mapped_scores_log, "log": mapped_scores_log_single,
+                  "linear": mapped_scores_linear}[self.space]
+        inv_of = lin_inv_total if self.space == "linear" else log_inv_total
         parts = []
         for s, dev_s, nb in zip(self.chunks, self._dev, self.chunk_reads):
             eff, total = _eff_matrix(s, candidates)
             eff_t = torch.as_tensor(eff, dtype=self.dtype, device=self.device)
-            linv_t = torch.as_tensor(log_inv_total(total), dtype=self.dtype,
-                                     device=self.device)
-            out = mapped_scores_log(
-                eff_t, linv_t, *dev_s, self.lt_lin, n_max_gaps=self.n_max_gaps)
+            inv_t = torch.as_tensor(inv_of(total), dtype=self.dtype,
+                                    device=self.device)
+            out = kernel(eff_t, inv_t, *dev_s, self.lt_lin,
+                         n_max_gaps=self.n_max_gaps)
             parts.append(out[:C, :nb])
         sorted_scores = torch.cat(parts, dim=1).to("cpu", torch.float64).numpy()
         per_read = np.empty_like(sorted_scores)

@@ -1,4 +1,5 @@
-"""The K1 CUDA kernel against its plain PyTorch twin, on an NVIDIA GPU.
+"""The K1, K2 and K3 CUDA kernels against their plain PyTorch twins, on an
+NVIDIA GPU.
 
 Every test here needs a card and skips without one.  This file imports no
 JAX, so it runs on a machine that has only PyTorch for CUDA:
@@ -51,13 +52,15 @@ def synthetic_streams(A, D, NC, C, B, L, seed):
     )
 
 
-def run_k1(s, device, dtype, fn=T.mapped_scores_log, **kw):
+def run_k1(s, device, dtype, fn=T.mapped_scores_log, inv="linv", **kw):
+    """Run ``fn`` on the case; K3 takes ``inv="inv_total"`` (linear)."""
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
                                     device=device)
     lt = T.lin_params(PHMMParams.uniform(0.001), np.float64)
+    inv_v = s["linv"] if inv == "linv" else np.exp(s["linv"])
     return fn(
         torch.as_tensor(s["eff"], dtype=dtype, device=device),
-        torch.as_tensor(s["linv"], dtype=dtype, device=device),
+        torch.as_tensor(inv_v, dtype=dtype, device=device),
         *[i32(s[k]) for k in ("lens", "codes", "emis", "numce", "selfp",
                               "prevp", "curp", "dence")],
         torch.as_tensor(lt, dtype=dtype, device=device), **kw,
@@ -78,23 +81,83 @@ def test_kernel_matches_twin(cuda, A, D, NC):
     ref32 = run_k1(s, cuda, torch.float32, fn=T.mapped_scores_log_reference)
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
     fin = np.isfinite(ref)
-    assert (np.abs(got - ref)[fin] <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
+    assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
     np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
     for g in (1, 2, 4, 8):
         np.testing.assert_array_equal(
             run_k1(s, cuda, torch.float32, group=g), got)
 
 
+def blocked_case(A, D, NC, seed):
+    """21 candidates (not a multiple of 8).  Positions 100-199 map only to
+    the lower half of the compact edges, which the last candidate zeroes:
+    there its reads live on only in I states and the Begin chain, low but
+    finite in log space, underflowing in linear space."""
+    s = synthetic_streams(A, D, NC, C=21, B=12, L=300, seed=seed)
+    s["numce"][100:200] %= NC // 2
+    s["eff"][-1, : NC // 2] = 0.0
+    return s
+
+
+@pytest.mark.parametrize("A,D,NC", [(16, 2, 128), (32, 3, 256), (64, 3, 384),
+                                    (128, 3, 256)])
+def test_k2_matches_twin(cuda, A, D, NC):
+    """K2 against its float64 twin per read (1e-5 |ref| + 0.05 nats), -inf
+    exactly where the twin has it, the float32 twin to 1e-3."""
+    s = blocked_case(A, D, NC, seed=A + 1)
+    fn, twin = T.mapped_scores_log_single, T.mapped_scores_log_single_reference
+    launches = fn.launches
+    got = run_k1(s, cuda, torch.float32, fn=fn)
+    assert fn.launches == launches + 1
+    ref = run_k1(s, cuda, torch.float64, fn=twin)
+    ref32 = run_k1(s, cuda, torch.float32, fn=twin)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    assert np.isfinite(ref[-1]).any()
+    fin = np.isfinite(ref)
+    assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
+    np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("A,D,NC", [(16, 2, 128), (32, 3, 256), (64, 3, 384),
+                                    (128, 3, 256)])
+def test_k3_matches_twin(cuda, A, D, NC):
+    """K3 against its twins: the float32 twin with the same -inf pattern
+    and values to 1e-3; the float64 twin to 1e-5 |ref| + 0.05 nats where
+    the kernel is finite, and every read that is -inf in float64 is -inf in
+    the kernel (float32 underflows earlier, so not the converse).  One and
+    eight candidates per block agree bit for bit (a partial last group)."""
+    s = blocked_case(A, D, NC, seed=A + 2)
+    fn, twin = T.mapped_scores_linear, T.mapped_scores_linear_reference
+    launches = fn.launches
+    got = run_k1(s, cuda, torch.float32, fn=fn, inv="inv_total")
+    assert fn.launches == launches + 1
+    ref = run_k1(s, cuda, torch.float64, fn=twin, inv="inv_total")
+    ref32 = run_k1(s, cuda, torch.float32, fn=twin, inv="inv_total")
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref32))
+    assert not np.isnan(got).any()
+    assert np.isneginf(got[np.isneginf(ref)]).all()
+    assert np.isneginf(got[-1]).any()
+    fin = np.isfinite(got)
+    assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
+    np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
+    for g in (1, 8):
+        np.testing.assert_array_equal(
+            run_k1(s, cuda, torch.float32, fn=fn, inv="inv_total", group=g),
+            got)
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     s = synthetic_streams(32, 3, 256, C=4, B=8, L=40, seed=1)
-    with pytest.raises(ValueError, match="float32"):
-        run_k1(s, cuda, torch.float64)
+    for fn in (T.mapped_scores_log, T.mapped_scores_log_single,
+               T.mapped_scores_linear):
+        with pytest.raises(ValueError, match="float32"):
+            run_k1(s, cuda, torch.float64, fn=fn)
 
 
 def test_seeded_scorer_on_gpu_matches_cpu(cuda):
     """Seeded mappings refined on the GPU (float32) and on the CPU (float64)
     agree, and MappedScorer on the GPU (the kernel) matches the CPU (the
-    float64 twin) on the k=16 tandem-repeat fixture."""
+    float64 twin) in each space on the k=16 tandem-repeat fixture."""
     g = G.tandem_repeat_polyploid_with_unique_homo_ends(
         50, 4, 0, 0.02, 0, 100, 2, 0.01, 0)
     ds = generate_dataset(g, 0, 6, 200, ReadType.FIXED_SIZE_FRAGMENT,
@@ -115,9 +178,12 @@ def test_seeded_scorer_on_gpu_matches_cpu(cuda):
     pos = precompute_positions(mn, tpl.parent_idx,
                                parent_exists=tpl.parent_exists)
     cands = [dbg.get_copy_nums(), [1] * dbg.n_edges_compact()]
-    per = {dev: T.MappedScorer(tpl, pos, codes, lens, params, dev).per_read(cands)
-           for dev in ("cpu", "cuda")}
-    fin = np.isfinite(per["cpu"])
-    np.testing.assert_array_equal(np.isfinite(per["cuda"]), fin)
-    assert (np.abs(per["cuda"] - per["cpu"])[fin]
-            <= 1e-5 * np.abs(per["cpu"][fin]) + 0.05).all()
+    for space in T.SPACES:
+        per = {dev: T.MappedScorer(tpl, pos, codes, lens, params, dev,
+                                   space=space).per_read(cands)
+               for dev in ("cpu", "cuda")}
+        fin = np.isfinite(per["cuda"])
+        if space != "linear":  # float32 linear may underflow where f64 does not
+            np.testing.assert_array_equal(np.isfinite(per["cpu"]), fin)
+        assert (np.abs(per["cuda"] - per["cpu"])[fin]
+                <= 1e-5 * np.abs(per["cpu"][fin]) + 0.05).all(), space

@@ -138,3 +138,33 @@ def test_map_and_post_files_round_trip(seeded, tmp_path):
     assert len(back_post.samples) == len(post.samples)
     assert back_post.max_copy_nums() == post.max_copy_nums()
     np.testing.assert_allclose(back_post.p, post.p, rtol=1e-12)
+
+
+@pytest.mark.parametrize("space", ["log", "linear"])
+def test_sample_posterior_gives_the_same_moves_in_every_scorer_space(
+        seeded, space):
+    """The hill climb from a corrupted neighbour of the truth, scored by K2
+    ("log") or K3 ("linear", with the rescue) instead of K1 ("packed"):
+    the same samples, the same accepted moves, the same max_copy_nums, and
+    likelihoods to 1e-6 relative (float64 twins on the CPU)."""
+    g = small_diploid()
+    dbg = MultiDbg.from_styled_seqs(8, list(g))
+    reads = perfect_reads(g, coverage=10, read_len=14)
+    params = PHMMParams.uniform(0.001)
+    work = dbg.copy()
+    work.set_copy_nums(to_short_neighbors(dbg, 8, 2)[0][0])
+    mappings = TP.generate_mappings(work, params, reads, "cpu")
+    posts = {sp: TP.sample_posterior(work, params, reads, mappings,
+                                     g.genome_size(), 5, "cpu",
+                                     rescue_only=False, max_iter=10,
+                                     scorer_space=sp)
+             for sp in ("packed", space)}
+    ref, got = posts["packed"], posts[space]
+    assert got.max_copy_nums() == ref.max_copy_nums() == dbg.get_copy_nums()
+    assert (got.max_sample().to_infos_string()
+            == ref.max_sample().to_infos_string())
+    assert [s.copy_nums for s in got.samples] == [s.copy_nums for s in ref.samples]
+    for s in got.samples:
+        np.testing.assert_allclose(s.score.likelihood,
+                                   ref.find(s.copy_nums).score.likelihood,
+                                   rtol=1e-6)
