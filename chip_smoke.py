@@ -9,8 +9,10 @@ and the script exits non-zero:
 1. device     -- a CUDA GPU is present; its name and power limit (nvidia-smi).
 2. build      -- builds the three scorer kernels (csrc/mapped_scorer.cu: K1
                  and K2; csrc/mapped_scorer_linear.cu: K3; nvcc, sm_90a) and
-                 the positions library from the checkout's sources, one
-                 compiler process each, all at once.
+                 the four host libraries (csrc/host/*.cpp, g++) from the
+                 checkout's sources, one compiler process each, all at once,
+                 after deleting any library an earlier run left; prints each
+                 kernel instance's ptxas registers and spills.
 3. mapping    -- seeded + refined mappings of all 98 reads of the committed
                  k=40 draft on the GPU (params of the CLI's default
                  --p-error), computed once and shared by the phases below.
@@ -19,8 +21,8 @@ and the script exits non-zero:
                  the draft's copy numbers + 15 rescue candidates, NC trimmed
                  as in production; one candidate per block), the main path's
                  launch shape (the draft's whole neighbourhood, ~2,980
-                 candidates, on the same reads: 8 candidates per block and a
-                 partial last group), and synthetic cases at A = 16, 64, 128
+                 candidates, on the same reads: several candidates per block
+                 and a partial last group), and synthetic cases at A = 16, 64, 128
                  (D = 3, several 128-wide eff chunks, 21 candidates at 1 and 8
                  per block).  Per read |kernel - twin| <= 1e-5 |twin| + 0.05
                  nats (float32 over a 10 kb read: ~7 barrier-separated
@@ -29,7 +31,9 @@ and the script exits non-zero:
                  where the twin has it, and the same best candidate; the real
                  case's rows of the large batch equal the real case bit for
                  bit.  The kernel table's ms / plain_ms are the kernel and
-                 the float32 twin at the main path's shape.
+                 the float32 twin at the main path's shape; the phase also
+                 prints K1's ptxas report, its bound at that shape (see
+                 bound()) and its share of it.
 5. k2_parity, k3_parity -- K2 and K3 on the real case plus one neighbour
                  that zeroes a compact edge those reads cross (the blocked
                  candidate), and on the synthetic cases, against their
@@ -63,7 +67,7 @@ and the script exits non-zero:
                  k-stages, purge + extension, the final full-neighbourhood
                  pass), in this process so that the launch counters can be
                  read: the K1 kernel ran, no twin did, no likelihood is NaN,
-                 the per-k files exist.
+                 the per-k files exist; K1's launches in each stage.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Then, on lines of their own: the card's name and power limit as
@@ -96,6 +100,10 @@ TWINS = {"K1": "mapped_scores_log_reference",
          "K2": "mapped_scores_log_single_reference",
          "K3": "mapped_scores_linear_reference"}
 REL_TOL, ABS_TOL = 1e-5, 0.05  # per-read kernel vs float64 twin
+# the card's peaks (NVIDIA's H100 SXM data sheet)
+PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
+PEAK_HBM = 3.35e12  # bytes/s
+MUFU_PER_SM_CLK = 16  # exp2 / log2 per SM per clock
 
 
 def emit(phase, t0, **kv):
@@ -143,6 +151,75 @@ def read_counters():
 
     return ({k: getattr(T, name).launches for k, (name, _s, _r) in KERNELS.items()},
             {k: getattr(T, TWINS[k]).calls for k in KERNELS})
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ptxas_of(output):
+    """[{entry, registers, spill_stores, spill_loads}] from nvcc -Xptxas -v."""
+    import re
+
+    out, entry = [], None
+    for ln in output.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"log_scorerILi(\d+)ELi(\d+)E", m.group(1))
+            entry = (f"log_scorer<RW={k.group(1)},RENORM={k.group(2)}>" if k
+                     else m.group(1))
+            out.append({"entry": entry})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def bound(kid, C, dev_s, n_live, n_max_gaps, clock_hz, n_sm):
+    """The least time the card could take for one launch of kernel ``kid``
+    on these streams (ms) and what sets it.  Counted the same way for K1,
+    K2 and K3, from this run's data: per live slot-step (a slot that can
+    emit, at a position inside its read; times C candidates) the
+    multiply-adds of the scaled-linear recursion (K3's form: 27 + 3 per
+    deletion-closure round with one parent column), 2 flops each, plus one
+    add (1 flop) per further live parent or out-edge column in each gather;
+    for K1 and K2 one exp and one log per M/I/D state (6), for K3 one log
+    per read position; the inputs read once and the output written once,
+    as the kernel takes them (int32 streams, float32 tables; ``n_live`` eff
+    columns, :func:`live_columns` of the launch's table).  Peaks: 67 TFLOP/s
+    float32 (an FMA counted as 2 flops), 16 exp2/log2 per SM per clock,
+    3.35 TB/s."""
+    import torch
+
+    lens, codes, emis, numce, selfp, prevp, curp, dence = dev_s
+    L, D, B, A = prevp.shape
+    inside = (torch.arange(L, device=lens.device)[:, None] < lens[None, :])
+    live = (emis < 4) & inside[:, :, None]  # [L, B, A]
+    S = int(live.sum())
+    extra = lambda x: int(((x.sum(1) - 1).clamp(min=0) * live).sum())
+    flops = (2 * (27 + 3 * n_max_gaps) * S + extra(prevp >= 0)
+             + (1 + n_max_gaps) * extra(curp >= 0) + extra(dence < n_live)) * C
+    trans = 6 * S * C if kid != "K3" else int(lens.sum()) * C
+    stream_bytes = sum(t.numel() * t.element_size() for t in dev_s)
+    if kid != "K3":
+        stream_bytes += L * B * 4  # the per-position live column count
+    nbytes = stream_bytes + C * (int(codes.shape[1]) * 4 + 4) + C * n_live * 4
+    times = {"operations": max(flops / PEAK_FP32,
+                               trans / (MUFU_PER_SM_CLK * n_sm * clock_hz)),
+             "bytes": nbytes / PEAK_HBM}
+    by = max(times, key=times.get)
+    return dict(bound_ms=times[by] * 1e3, bound_by=by, live_slot_steps=S * C,
+                flops=flops, transcendentals=trans, bytes=nbytes,
+                flops_ms=flops / PEAK_FP32 * 1e3,
+                mufu_ms=trans / (MUFU_PER_SM_CLK * n_sm * clock_hz) * 1e3,
+                bytes_ms=times["bytes"] * 1e3)
 
 
 def check_close(got, ref, what, underflow_ok=False):
@@ -226,12 +303,12 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
     import numpy as np
     import torch
 
-    from dbgphmm_tpu.multi_dbg.neighbors import (
+    from dbgphmm_tpu_torch.multi_dbg.neighbors import (
         NeighborConfig,
         to_neighbor_copy_nums_and_infos,
         to_rescue_neighbors,
     )
-    from dbgphmm_tpu.phmm.template import make_template
+    from dbgphmm_tpu_torch.phmm.template import make_template
     from dbgphmm_tpu_torch.ops import _build
     from dbgphmm_tpu_torch.ops import mapped_scorer as T
     from dbgphmm_tpu_torch.ops.forward import pad_reads
@@ -263,9 +340,11 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
         eff, total = T._eff_matrix(s, batch)
         return (on(eff, dt), on(T.log_inv_total(total), dt), *dev_s, on(lt, dt))
 
-    def group_of(C):
-        return T._pick_group(_build.mapped_scorer_lib().dbg_mapped_scores_log_smem,
-                             C, int(Bp), int(A), int(D), s.nc_pad, device)
+    def launch_of(eff):
+        """The wrapper's (G, TP) for this eff table."""
+        return T._pick_log_launch(_build.mapped_scorer_lib(), eff.shape[0],
+                                  int(Bp), int(A), int(D), T.live_columns(eff),
+                                  2, device)
 
     def parity(batch, what):
         """The kernel against the float64 twin on one batch; returns the
@@ -283,7 +362,9 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
     args32 = k1_args(cands, torch.float32)
     ms_real = cuda_ms(lambda: T.mapped_scores_log(*args32, **kw), 5)
     real = dict(C=len(cands), B=B, L=int(L), A=int(A), D=int(D), NC=s.nc_pad,
-                group=group_of(len(cands)), max_abs_err=err_real, ms=ms_real,
+                n_live=T.live_columns(args32[0]),
+                group_stage=launch_of(args32[0]),
+                max_abs_err=err_real, ms=ms_real,
                 kernel_scorings_per_s=len(cands) * B / (ms_real / 1e3))
 
     # the main path's launch shape: the draft's whole neighbourhood (the
@@ -297,12 +378,14 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
                     if tuple(cn) not in seen]
     if len(full) % T.MAX_GROUP == 0:
         full.pop()
-    G_full = group_of(len(full))
-    assert G_full == T.MAX_GROUP, f"the wrapper picks G={G_full}"
-    out_f, err_full = parity(full, "full batch")
-    assert torch.equal(out_f[:len(cands)], got), \
-        f"the real case's rows at G={G_full} differ from G=1"
     args_f = k1_args(full, torch.float32)
+    n_live = T.live_columns(args_f[0])
+    G_full, TP_full = launch_of(args_f[0])
+    assert G_full > 1, f"the wrapper picks G={G_full} for the full batch"
+    out_f, err_full = parity(full, "full batch")
+    got1 = T.mapped_scores_log(*args32, group=1, **kw)
+    assert torch.equal(got1, got) and torch.equal(out_f[:len(cands)], got1), \
+        f"the real case's rows at G={G_full} differ from G=1"
     ms_f = cuda_ms(lambda: T.mapped_scores_log(*args_f, **kw), 2)
     # the twin compiles nothing and the float64 call above has warmed the
     # allocator: one timed call (each takes tens of seconds)
@@ -311,11 +394,19 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
         lambda: twin32.append(T.mapped_scores_log_reference(*args_f, **kw)),
         1, warmup=False)
     diff32 = (out_f - twin32[-1])[:, :B].abs()
-    batch = dict(C=len(full), B=B, group=G_full, max_abs_err=err_full,
-                 real_case_rows_bit_equal=True, ms=ms_f,
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    bnd = bound("K1", len(full), dev_s, n_live, params.n_max_gaps,
+                sm_clock_hz(), n_sm)
+    ptx = [e for e in ptxas_of(_build.BUILD_LOG["libmapped_scorer"]["output"])
+           if "RENORM=2" in e["entry"]]
+    assert ptx and all(e.get("spill_stores") == 0 for e in ptx), ptx
+    batch = dict(C=len(full), B=B, n_live=n_live, group=G_full,
+                 stage_positions=TP_full,
+                 max_abs_err=err_full, real_case_rows_bit_equal=True, ms=ms_f,
                  plain_ms=plain_ms,
                  max_abs_diff_f32_twin=float(diff32[diff32.isfinite()].max()),
-                 kernel_scorings_per_s=len(full) * B / (ms_f / 1e3))
+                 kernel_scorings_per_s=len(full) * B / (ms_f / 1e3),
+                 **bnd, share_of_bound=bnd["bound_ms"] / ms_f)
 
     # synthetic: wider slot sets, D = 3, several 128-wide eff chunks; 21
     # candidates at the picked group (G = 1) and forced to G = 8
@@ -339,11 +430,13 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
             case[f"max_abs_err_group_{g or 'picked'}"] = e
         synth.append(case)
 
-    emit("k1_parity", t0, real=real, full_batch=batch, synthetic=synth)
+    emit("k1_parity", t0, ptxas=ptx, real=real, full_batch=batch,
+         synthetic=synth)
     ctx = dict(tpl=tpl, pos=pos, codes=codes, lens=lens, scorer=scorer,
                s=s, dev_s=dev_s, cands=cands, full=full, k1_full=out_f, B=B,
-               lt=lt, kw=kw, maps=maps)
-    return dict(max_abs_err=err_max, ms=ms_f, plain_ms=plain_ms), ctx
+               lt=lt, kw=kw, maps=maps, n_sm=n_sm)
+    return dict(max_abs_err=err_max, ms=ms_f, plain_ms=plain_ms,
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"]), ctx
 
 
 def blocked_candidate(device, ctx):
@@ -451,7 +544,10 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
     assert np.array_equal(np.isneginf(o32), np.isneginf(t32)), \
         f"{kid}: -inf pattern differs from the float32 twin"
     fin = np.isfinite(t32)
-    main = dict(C=len(full), B=B, ms=ms, plain_ms=plain_ms,
+    bnd = bound(kid, len(full), dev_s, T.live_columns(args_f[0]),
+                kw["n_max_gaps"], sm_clock_hz(), ctx["n_sm"])
+    main = dict(C=len(full), B=B, ms=ms, plain_ms=plain_ms, **bnd,
+                share_of_bound=bnd["bound_ms"] / ms,
                 max_abs_diff_k1=err_k1,
                 n_reads_neginf=int(np.isneginf(got_f).sum()),
                 max_abs_diff_f32_twin_real_case=float(
@@ -482,7 +578,8 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
 
     emit(f"{kid.lower()}_parity", t0, real=real_out, synthetic=synth,
          main_shape=main, rescue=rescue)
-    return dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
 
 
 def phase_refine(params, ds, dbg, maps98):
@@ -561,7 +658,7 @@ def phase_scorer_spaces(device, params, ds, dbg, maps98):
 def phase_inspect(device, ds, dbg):
     import numpy as np
 
-    from dbgphmm_tpu.phmm.template import make_template
+    from dbgphmm_tpu_torch.phmm.template import make_template
     from dbgphmm_tpu_torch import cli
     from dbgphmm_tpu_torch.multi_dbg import posterior as TP
     from dbgphmm_tpu_torch.ops import mapped_scorer as T
@@ -627,12 +724,28 @@ def phase_infer():
 
     from dbgphmm_tpu_torch import cli
 
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+    from dbgphmm_tpu_torch.ops import mapped_scorer as T
+
     t0 = time.perf_counter()
+    # K1 launches of each stage's climb: the counter read around each
+    # sample_posterior call (one per k-stage and one for the final pass)
+    per_stage = []
+    real_sample = TP.sample_posterior
+
+    def counting(dbg, *a, **kw):
+        n0 = T.mapped_scores_log.launches
+        post = real_sample(dbg, *a, **kw)
+        per_stage.append(dict(k=dbg.k, k1_launches=T.mapped_scores_log.launches - n0,
+                              samples=len(post.samples)))
+        return post
+
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "out")
         argv = ["sim-infer", str(ROOT / "data/bench/data.json"),
                 "-d", str(ROOT / "data/bench/data.dbg"), "-o", prefix,
                 "-K", "41", "-I", "1"]
+        TP.sample_posterior = counting
         reset_counters()
         buf = io.StringIO()
         try:
@@ -642,6 +755,8 @@ def phase_infer():
             # the CLI's own log, for the failure's context
             sys.stderr.write("\n".join(buf.getvalue().splitlines()[-60:]) + "\n")
             raise
+        finally:
+            TP.sample_posterior = real_sample
         launches, twins = read_counters()
         assert launches["K1"] > 0, "the K1 kernel never ran on the main path"
         assert not any(twins.values()), f"a twin ran on CUDA: {twins}"
@@ -654,7 +769,9 @@ def phase_infer():
         assert "out.final.euler.fa" in files
         tail = [ln for ln in buf.getvalue().splitlines()
                 if ln.startswith("# assembled=")]
+    assert sum(st["k1_launches"] for st in per_stage) == launches["K1"]
     emit("infer", t0, argv=argv[:1] + argv[4:], launches=launches["K1"],
+         k1_launches_per_stage=per_stage,
          twin_calls=twins["K1"], final_k=dbg.k, n_samples=len(lls),
          n_finite=int(np.isfinite(lls).sum()), result=tail,
          stages=[st.as_dict() for st in stages])
@@ -679,20 +796,24 @@ def main():
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    from dbgphmm_tpu.e2e import Dataset
-    from dbgphmm_tpu.multi_dbg import output as out
-    from dbgphmm_tpu.phmm.params import PHMMParams
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as out
+    from dbgphmm_tpu_torch.phmm.params import PHMMParams
     from dbgphmm_tpu_torch.ops import _build
 
     t1 = time.perf_counter()
+    # build from the sources, not from an earlier run's libraries: the
+    # build's time and ptxas report belong to this run
+    for so in _build.BUILD_DIR.glob("lib*.so"):
+        so.unlink()
     _build.build_all()
     log = _build.BUILD_LOG
-    ptxas = {stem: [ln.strip() for ln in log[stem]["output"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {stem: ptxas_of(log[stem]["output"])
              for stem in ("libmapped_scorer", "libmapped_scorer_linear")}
     emit("build", t1, k1_k2_nvcc_s=log["libmapped_scorer"]["seconds"],
          k3_nvcc_s=log["libmapped_scorer_linear"]["seconds"],
-         positions_gxx_s=log["libdbgpos"]["seconds"], ptxas=ptxas)
+         host_gxx_s={n: log[f"lib{n}"]["seconds"] for n in _build.HOST_LIBS},
+         ptxas=ptxas)
 
     device = torch.device("cuda")
     params = PHMMParams.uniform(0.001)  # the CLI's default --p-error
@@ -710,13 +831,17 @@ def main():
     launches = {"K2": phase_inspect(device, ds, dbg),
                 "K3": spaces["linear"]["launches"]["K3"],
                 "K1": phase_infer()}
-    assert "jax" not in sys.modules, "the port imported jax"
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dbgphmm_tpu"))
+    assert not foreign, f"the port imported {foreign[:5]}"
 
     print(smi)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[kid], "max_abs_err": res[kid]["max_abs_err"],
         "ms": res[kid]["ms"], "plain_ms": res[kid]["plain_ms"],
+        "bound_ms": res[kid]["bound_ms"], "bound_by": res[kid]["bound_by"],
+        # no single PyTorch call computes a profile-HMM forward
+        "library_ms": None,
     } for kid, (name, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

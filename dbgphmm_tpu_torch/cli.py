@@ -60,7 +60,7 @@ def _true_compact_copy_nums(dbg_k, paths):
 
 
 def _run_inference(dbg, reads, args, device, paths_true=None, mappings=None):
-    from dbgphmm_tpu.phmm.params import PHMMParams
+    from .phmm.params import PHMMParams
 
     from .multi_dbg import output as out
     from .multi_dbg.posterior import infer_posterior_by_extension
@@ -107,7 +107,7 @@ def _run_inference(dbg, reads, args, device, paths_true=None, mappings=None):
 
 
 def cmd_infer(args):
-    from dbgphmm_tpu.seq.collection import ReadCollection
+    from .seq.collection import ReadCollection
 
     from .multi_dbg import output as out
 
@@ -137,8 +137,8 @@ def cmd_inspect(args):
     """Re-score a DBG's current copy numbers and the true ones (from the
     dataset's genome paths) against the reads (ref: bin/inspect.rs).  The
     two candidates are scored in log space, by K2 on a GPU."""
-    from dbgphmm_tpu.e2e import Dataset
-    from dbgphmm_tpu.phmm.template import make_template
+    from .e2e import Dataset
+    from .phmm.template import make_template
 
     from .multi_dbg import output as out
     from .multi_dbg.posterior import (
@@ -198,8 +198,8 @@ def _sample_and_write(dbg, params, reads, genome_size, args, device,
 def cmd_sample(args):
     """Posterior sampling around a given DBG at fixed k (ref:
     bin/sample.rs)."""
-    from dbgphmm_tpu.phmm.params import PHMMParams
-    from dbgphmm_tpu.seq.collection import ReadCollection
+    from .phmm.params import PHMMParams
+    from .seq.collection import ReadCollection
 
     from .multi_dbg import output as out
 
@@ -217,8 +217,8 @@ def cmd_sample(args):
 def cmd_sample_from_true(args):
     """Posterior sampling around the TRUE copy numbers of a dataset's
     genome: is the truth a local optimum (ref: bin/sample_from_true.rs)."""
-    from dbgphmm_tpu.e2e import Dataset
-    from dbgphmm_tpu.multi_dbg import MultiDbg
+    from .e2e import Dataset
+    from .multi_dbg import MultiDbg
 
     device = _resolve_device(args.device)
     ds = Dataset.from_json_file(args.dataset_json)
@@ -235,7 +235,7 @@ def cmd_sample_from_true(args):
 def cmd_sim_infer(args):
     """Inference against a dataset.json, with the truth diff (ref:
     bin/infer.rs)."""
-    from dbgphmm_tpu.e2e import Dataset
+    from .e2e import Dataset
 
     from .multi_dbg import output as out
 

@@ -1,11 +1,12 @@
 // Shared pieces of the mapped candidate scorers (K1 and K2 in
-// mapped_scorer.cu, K3 in mapped_scorer_linear.cu): the stream layout, the
-// per-position cp.async stream copy, the row reductions, the block's
-// shared-memory layout and the launcher.  See mapped_scorer.cu for the
-// design.
+// mapped_scorer.cu, K3 in mapped_scorer_linear.cu).  All three use the
+// constants, the stream layout (Streams) and the warp reductions.  The rest
+// is K3's block design (K1 and K2 have their own, see mapped_scorer.cu):
+// the per-position cp.async stream copy, the block-wide row reductions, the
+// block's shared-memory layout and the launcher.
 //
-// Block: blockDim.x = AP = max(32, A rounded up to whole warps) threads,
-// thread x owns slot x; blockDim.y = G candidates of one read.
+// K3's block: blockDim.x = AP = max(32, A rounded up to whole warps)
+// threads, thread x owns slot x; blockDim.y = G candidates of one read.
 // Dynamic shared memory, in this order:
 //   eff rows      G x NC floats
 //   4 gather rows G x AP floats each (P, Q, X0, X1)

@@ -5,7 +5,7 @@ PyTorch counterpart of ``dbgphmm_tpu/multi_dbg/posterior.py``.  The score
 of an assignment X is ``P(X|R) ∝ P(R|X) · P(G) · #EulerCircuits(X)``: the
 read likelihoods come from :class:`~dbgphmm_tpu_torch.ops.mapped_scorer.
 MappedScorer` (a CUDA kernel on a GPU, its float64 twin on the CPU), the
-prior and the Euler count from the JAX package's host code.
+prior and the Euler count from the port's copies of the host layers.
 
 What is ported: mapping generation by exact-match seeding plus the
 hint-constrained refine (graphs of more than ``DENSE_COMPUTE_MAX_NODES``
@@ -29,11 +29,18 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from dbgphmm_tpu.graph.euler import EulerCache
-from dbgphmm_tpu.hist import DiscreteDistribution
-from dbgphmm_tpu.multi_dbg import MultiDbg
-from dbgphmm_tpu.multi_dbg.draft import min_squared_error_copy_nums_from_freqs
-from dbgphmm_tpu.multi_dbg.neighbors import (
+from ..graph.euler import EulerCache
+from ..hist import DiscreteDistribution
+from ..ops.adaptive import mappings_refine
+from ..ops.forward import default_dtype, pad_reads, to_device
+from ..ops.mapped_scorer import MappedScorer
+from ..ops.sparse import pad_mappings, precompute_positions
+from ..phmm.params import PHMMParams
+from ..phmm.template import make_template
+from ..prob import NEG_INF, ladd, normal_bin_logp
+from . import MultiDbg
+from .draft import min_squared_error_copy_nums_from_freqs
+from .neighbors import (
     NeighborConfig,
     UpdateInfo,
     apply_update_cycle,
@@ -41,15 +48,7 @@ from dbgphmm_tpu.multi_dbg.neighbors import (
     to_neighbor_copy_nums_and_infos,
     to_rescue_neighbors,
 )
-from dbgphmm_tpu.multi_dbg.seed import seed_mappings_arrays
-from dbgphmm_tpu.phmm.params import PHMMParams
-from dbgphmm_tpu.phmm.template import make_template
-from dbgphmm_tpu.prob import NEG_INF, ladd, normal_bin_logp
-
-from ..ops.adaptive import mappings_refine
-from ..ops.forward import default_dtype, pad_reads, to_device
-from ..ops.mapped_scorer import MappedScorer
-from ..ops.sparse import pad_mappings, precompute_positions
+from .seed import seed_mappings_arrays
 
 DENSE_MAPPING_MAX_NODES = 4000  # dense decode up to here (not ported yet)
 DENSE_COMPUTE_MAX_NODES = 32768  # beyond this, mappings come from seeding

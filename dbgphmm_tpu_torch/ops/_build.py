@@ -11,13 +11,17 @@ ctypes; nothing is built when a module is imported.
 * ``libmapped_scorer_linear_<hash>.so`` — the K3 scorer,
   ``csrc/mapped_scorer_linear.cu``, built the same way.  Both CUDA sources
   include ``csrc/mapped_common.cuh``.
-* ``libdbgpos_<hash>.so`` — the slot-position builder ``cpp/positions.cpp``
-  of the JAX package, compiled with ``g++`` into the port's own build
-  directory (the JAX package's copy next to its sources is never touched).
+* ``lib<name>_<hash>.so`` — the host kernels in ``csrc/host/``, compiled
+  with ``g++``: ``positions.cpp`` (slot positions, ``ops/sparse.py``),
+  ``flow.cpp`` (the min-cost flow solver, ``flow/native.py``),
+  ``seedchain.cpp`` (the seed chain DP, ``multi_dbg/seed.py``) and
+  ``kshortest.cpp`` (Yen's k shortest paths, ``graph/k_shortest.py``).
 
 The source hash in the file name keeps a stale build from being loaded
 after an edit.  A failed build raises with the compiler's output; there is
-no fallback.  :func:`build_all` runs the three compilers at once.
+no fallback here (the flow, seed and k-shortest loaders keep the pure-Python
+fallbacks of the modules they were copied from).  :func:`build_all` runs
+every compiler at once.
 """
 
 from __future__ import annotations
@@ -33,12 +37,13 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-REPO = PKG.parent
 BUILD_DIR = PKG / "build"
 SCORER_SRC = PKG / "csrc" / "mapped_scorer.cu"
 LINEAR_SRC = PKG / "csrc" / "mapped_scorer_linear.cu"
 COMMON_HDR = PKG / "csrc" / "mapped_common.cuh"
-POSITIONS_SRC = REPO / "cpp" / "positions.cpp"
+HOST_DIR = PKG / "csrc" / "host"
+HOST_LIBS = ("positions", "flow", "seedchain", "kshortest")
+HOST_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -117,9 +122,9 @@ def mapped_scorer_lib() -> ctypes.CDLL:
     if "scorer" not in _LIBS:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         _LIBS["scorer"] = _cuda_lib(SCORER_SRC, "libmapped_scorer", {
-            "dbg_mapped_scores_log": (i32, [vp] * 12 + [i32] * 8 + [vp]),
-            "dbg_mapped_scores_log_single": (i32, [vp] * 12 + [i32] * 7 + [vp]),
-            "dbg_mapped_scores_log_smem": (ctypes.c_size_t, [i32] * 4),
+            "dbg_mapped_scores_log": (i32, [vp] * 13 + [i32] * 10 + [vp]),
+            "dbg_mapped_scores_log_single": (i32, [vp] * 13 + [i32] * 9 + [vp]),
+            "dbg_mapped_scores_log_blocks_per_sm": (i32, [i32] * 6),
         })
     return _LIBS["scorer"]
 
@@ -135,17 +140,19 @@ def mapped_scorer_linear_lib() -> ctypes.CDLL:
     return _LIBS["linear"]
 
 
+def host_so(name: str) -> Path:
+    """``csrc/host/<name>.cpp`` compiled with g++ (on first call)."""
+    src = HOST_DIR / f"{name}.cpp"
+    return _compile(lambda out: ["g++", *HOST_FLAGS, str(src), "-o", out],
+                    [src], f"lib{name}", HOST_FLAGS)
+
+
 def positions_lib() -> ctypes.CDLL:
     """The native slot-position builder (built on first call)."""
     if "positions" not in _LIBS:
         import numpy as np
 
-        flags = ["-O3", "-shared", "-fPIC"]
-        so = _compile(
-            lambda out: ["g++", *flags, str(POSITIONS_SRC), "-o", out],
-            [POSITIONS_SRC], "libdbgpos", flags,
-        )
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(host_so("positions")))
         lib.dbg_precompute_positions.restype = ctypes.c_int
         lib.dbg_precompute_positions.argtypes = [ctypes.c_int32] * 5 + [
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
@@ -160,8 +167,8 @@ def positions_lib() -> ctypes.CDLL:
 
 def build_all() -> None:
     """Build every native library at once, one compiler process each."""
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for f in [pool.submit(fn) for fn in (mapped_scorer_lib,
-                                             mapped_scorer_linear_lib,
-                                             positions_lib)]:
+    jobs = [mapped_scorer_lib, mapped_scorer_linear_lib]
+    jobs += [lambda n=name: host_so(n) for name in HOST_LIBS]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for f in [pool.submit(fn) for fn in jobs]:
             f.result()

@@ -18,7 +18,7 @@ from typing import Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from dbgphmm_tpu.phmm.model import PHMMModel, encode_bases
+from ..phmm.model import PHMMModel, encode_bases
 
 NEG = float("-inf")
 

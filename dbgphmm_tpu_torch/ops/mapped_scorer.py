@@ -46,6 +46,7 @@ NEGF = -1e30  # finite log(0) sentinel of the kernel (and of the TPU kernel)
 RENORM_EVERY = 2  # renormalise every 2 positions (the TPU production value)
 SMEM_OPTIN = 232448  # shared memory one block may use on Hopper (227 KB)
 MAX_GROUP = 8  # candidates per block, at most
+STAGE_POSITIONS = (8, 4, 2, 1)  # K1 / K2: read positions staged per copy
 
 
 class MappedStreams(NamedTuple):
@@ -179,6 +180,14 @@ def _eff_matrix(streams: MappedStreams, cands) -> Tuple[np.ndarray, np.ndarray]:
     else:
         eff[:, :nc] = cn_mat  # nc < nc_pad - 1: the sentinel column stays 0
     return eff, total
+
+
+def live_columns(eff: torch.Tensor) -> int:
+    """[C, NC] eff table -> its columns up to the last one that is non-zero
+    for some candidate (at least 1).  K1 and K2 stage only these, and read
+    every compact id past them as a copy number of 0."""
+    nz = eff.ne(0).any(dim=0).nonzero()
+    return int(nz[-1]) + 1 if nz.numel() else 1
 
 
 def eff_tables(streams: MappedStreams, copy_num_candidates
@@ -478,8 +487,8 @@ def _check_inputs(where, eff, inv, lens, codes, emis, numce, selfp, prevp,
 
 def _pick_group(smem_fn, C: int, B: int, A: int, D: int, NC: int,
                 device: torch.device) -> int:
-    """Candidates per block: as many as threads (<= 1024) and shared memory
-    allow, up to MAX_GROUP, but no more than keeps ~4 blocks per SM.
+    """K3's candidates per block: as many as threads (<= 1024) and shared
+    memory allow, up to MAX_GROUP, but no more than keeps ~4 blocks per SM.
     ``smem_fn(NC, A, D, G)`` is the kernel's shared memory per block."""
     ap = max(32, -(-A // 32) * 32)
     G = min(MAX_GROUP, 1024 // ap)
@@ -492,6 +501,90 @@ def _pick_group(smem_fn, C: int, B: int, A: int, D: int, NC: int,
     while G > 1 and -(-C // G) * B < 4 * n_sm:
         G //= 2
     return G
+
+
+def _pick_log_launch(lib, C: int, B: int, A: int, D: int, n_live: int,
+                     renorm: int, device: torch.device,
+                     group: Optional[int] = None) -> Tuple[int, int]:
+    """(candidate rows per block G, positions staged per copy TP) of a K1
+    (renorm 2) or K2 (renorm 1, G = 1) launch.
+
+    For each G (or the forced ``group``) the TP with the most resident
+    blocks per SM, as the CUDA runtime reports them for this kernel's
+    registers and shared memory; then the G with the most rows resident on
+    the card (blocks past the grid do not count), ties going to more busy
+    SMs, a deeper stage and then more rows per block."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = [group] if group else ([1] if renorm == 1 else [1, 2, 4, 8])
+    best = None
+    for G in groups:
+        n_blocks = -(-C // G) * B
+        for TP in STAGE_POSITIONS:
+            per_sm = lib.dbg_mapped_scores_log_blocks_per_sm(n_live, A, D, G,
+                                                             TP, renorm)
+            if per_sm <= 0:
+                continue
+            key = (min(per_sm * n_sm, n_blocks) * G, min(n_blocks, n_sm), TP, G)
+            if best is None or key > best[0]:
+                best = (key, G, TP)
+    if best is None:
+        raise ValueError(f"no launch of the log scorer fits an SM (A={A} D={D} "
+                         f"n_live={n_live} group={group})")
+    return best[1], best[2]
+
+
+def live_degree_columns(prevp: torch.Tensor, curp: torch.Tensor,
+                        dence: torch.Tensor, n_live: int) -> torch.Tensor:
+    """[L, B] int32: per read position, how many leading degree columns any
+    slot uses (1..D): a parent at the previous or the current position, or
+    an out-edge id below ``n_live``.  K1 and K2 run a position with only as
+    many columns as this says; the rest are log 0 there."""
+    L, D, B, A = prevp.shape
+    if D == 1:
+        return torch.ones((L, B), dtype=torch.int32, device=prevp.device)
+    live = ((prevp[:, 1:] >= 0) | (curp[:, 1:] >= 0)
+            | (dence[:, 1:] < n_live)).any(dim=-1)  # [L, D-1, B]
+    col = torch.arange(2, D + 1, dtype=torch.int32,
+                       device=prevp.device).view(1, D - 1, 1)
+    return (live.to(torch.int32) * col).amax(dim=1).clamp_(min=1).contiguous()
+
+
+def _launch_log(what, fn, renorm: int, args, n_max_gaps: int,
+                group: Optional[int]) -> torch.Tensor:
+    """Launch K1 (renorm 2) or K2 (renorm 1) on the current stream; raise
+    with the CUDA error string if the launch is refused.  The eff columns
+    to stage (:func:`live_columns`) and the live degree columns per
+    position (:func:`live_degree_columns`) are derived here from the
+    inputs, so they cannot disagree with them."""
+    lib = _build.mapped_scorer_lib()
+    eff, prevp = args[0], args[7]
+    C, NC = eff.shape
+    L, D, B, A = prevp.shape
+    ncl = live_columns(eff)
+    if ncl >= NC:
+        raise ValueError(f"{what}: eff's sentinel column {NC - 1} must be 0")
+    if A > 128 or A % 4:
+        raise ValueError(f"{what}: slot width A={A} must be a multiple of 4 "
+                         "and at most 128")
+    ncols = live_degree_columns(prevp, args[8], args[9], ncl)
+    for t in args[2:10]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: streams must be 16-byte aligned")
+    G, TP = _pick_log_launch(lib, C, B, A, D, ncl, renorm, eff.device, group)
+    out = torch.empty((C, B), dtype=torch.float32, device=eff.device)
+    with torch.cuda.device(eff.device):
+        stream = torch.cuda.current_stream(eff.device).cuda_stream
+        ptrs = [ctypes.c_void_p(t.data_ptr())
+                for t in (*args[:10], ncols, args[10], out)]
+        dims = [C, NC, ncl, L, B, A, D, n_max_gaps]
+        rc = fn(*ptrs, *dims, *([G] if renorm == 2 else []), TP,
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} launch failed: {lib.dbg_cuda_error_string(rc).decode()} "
+            f"(C={C} B={B} L={L} A={A} D={D} NC={NC} n_live={ncl} G={G} "
+            f"TP={TP})")
+    return out
 
 
 def _launch(what, lib, fn, args, n_max_gaps: int, *extra) -> torch.Tensor:
@@ -519,20 +612,20 @@ def mapped_scores_log(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
     """K1: [C, B] per-read log P(read | candidate), rows in candidate order.
 
     CUDA tensors (eff/linv/lt_lin float32, streams and lens int32, all
-    contiguous on one device) launch the K1 kernel on the current stream;
-    CPU tensors run :func:`mapped_scores_log_reference`.  ``group`` forces
-    the number of candidates per block."""
+    contiguous on one device; the slot width A a multiple of 4, at most
+    128) launch the K1 kernel on the current stream; CPU tensors run
+    :func:`mapped_scores_log_reference`.  ``group`` forces the number of
+    candidates per block.  Column NC - 1 of eff (the sentinel) must be 0;
+    the kernel stages each candidate's table only up to its last column
+    that is non-zero for some candidate."""
     args = (eff, linv, lens, codes, emis, numce, selfp, prevp, curp, dence,
             lt_lin)
     if eff.device.type == "cpu":
         return mapped_scores_log_reference(*args, n_max_gaps=n_max_gaps)
     _check_inputs("mapped_scores_log", *args)
     lib = _build.mapped_scorer_lib()
-    C, NC = eff.shape
-    L, D, B, A = prevp.shape
-    G = group or _pick_group(lib.dbg_mapped_scores_log_smem, C, B, A, D, NC,
-                             eff.device)
-    out = _launch("K1", lib, lib.dbg_mapped_scores_log, args, n_max_gaps, G)
+    out = _launch_log("K1", lib.dbg_mapped_scores_log, 2, args, n_max_gaps,
+                      group)
     mapped_scores_log.launches += 1
     return out
 
@@ -547,20 +640,17 @@ def mapped_scores_log_single(eff, linv, lens, codes, emis, numce, selfp,
     per block, renormalised at every position.
 
     CUDA tensors launch the K2 kernel (``dbg_mapped_scores_log_single`` of
-    ``csrc/mapped_scorer.cu``); CPU tensors run
-    :func:`mapped_scores_log_single_reference`."""
+    ``csrc/mapped_scorer.cu``, K1's body at G = 1); CPU tensors run
+    :func:`mapped_scores_log_single_reference`.  Inputs as in
+    :func:`mapped_scores_log`."""
     args = (eff, linv, lens, codes, emis, numce, selfp, prevp, curp, dence,
             lt_lin)
     if eff.device.type == "cpu":
         return mapped_scores_log_single_reference(*args, n_max_gaps=n_max_gaps)
     _check_inputs("mapped_scores_log_single", *args)
     lib = _build.mapped_scorer_lib()
-    NC, (L, D, B, A) = eff.shape[1], prevp.shape
-    if lib.dbg_mapped_scores_log_smem(NC, A, D, 1) > SMEM_OPTIN:
-        raise ValueError(f"eff table of {NC} compact edges does not fit in "
-                         "shared memory")
-    out = _launch("K2", lib, lib.dbg_mapped_scores_log_single, args,
-                  n_max_gaps)
+    out = _launch_log("K2", lib.dbg_mapped_scores_log_single, 1, args,
+                      n_max_gaps, 1)
     mapped_scores_log_single.launches += 1
     return out
 

@@ -3,7 +3,7 @@ active-set gathers.
 
 PyTorch counterpart of the parts of ``dbgphmm_tpu/ops/sparse.py`` that the
 seeded inference path runs: :class:`MappedPositions` and
-``precompute_positions`` (the native builder ``cpp/positions.cpp``),
+``precompute_positions`` (the native builder ``csrc/host/positions.cpp``),
 ``pad_mappings``, and the equality-match gathers ``_gather_prev`` /
 ``_gather_self`` used by the refine scan (ops/adaptive.py).
 """
@@ -84,7 +84,7 @@ class MappedPositions(NamedTuple):
 def precompute_positions(map_nodes: np.ndarray, parent_idx: np.ndarray,
                          parent_exists: np.ndarray = None) -> MappedPositions:
     """Build :class:`MappedPositions` with the native builder
-    (``cpp/positions.cpp``, compiled into the port's build directory).
+    (``csrc/host/positions.cpp``, compiled into the port's build directory).
 
     ``parent_exists`` masks structurally absent adjacency padding (node id
     0 in the model arrays) so it resolves to -1 instead of matching a real

@@ -11,16 +11,15 @@ import pytest
 import torch
 
 from dbgphmm_tpu import cli as jax_cli
-from dbgphmm_tpu.e2e import Dataset
-from dbgphmm_tpu.multi_dbg import MultiDbg
-from dbgphmm_tpu.multi_dbg import output as jax_out
-from dbgphmm_tpu.multi_dbg.neighbors import to_short_neighbors
-from dbgphmm_tpu.phmm.params import PHMMParams
-from dbgphmm_tpu.seq.collection import ReadCollection, StyledSequence
-from dbgphmm_tpu.seq.genome import Genome
-from dbgphmm_tpu.seq.random_seq import generate
 from dbgphmm_tpu_torch import cli
+from dbgphmm_tpu_torch.e2e import Dataset
+from dbgphmm_tpu_torch.multi_dbg import MultiDbg
 from dbgphmm_tpu_torch.multi_dbg import output as TO
+from dbgphmm_tpu_torch.multi_dbg.neighbors import to_short_neighbors
+from dbgphmm_tpu_torch.phmm.params import PHMMParams
+from dbgphmm_tpu_torch.seq.collection import ReadCollection, StyledSequence
+from dbgphmm_tpu_torch.seq.genome import Genome
+from dbgphmm_tpu_torch.seq.random_seq import generate
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -78,7 +77,7 @@ def test_cli_refuses_cuda_without_a_gpu(command):
 def test_cli_euler_matches_jax(tmp_path):
     dbg = MultiDbg.from_styled_seqs(
         8, [StyledSequence.linear(b"TTAGGCTTCGATCGAATGCCAGGTTACG")])
-    jax_out.to_dbg_file(dbg, tmp_path / "g.dbg")
+    TO.to_dbg_file(dbg, tmp_path / "g.dbg")
     res = _run("euler", "-d", str(tmp_path / "g.dbg"), str(tmp_path / "ours.fa"))
     assert res.returncode == 0, res.stderr
     jax_cli.main(["euler", "-d", str(tmp_path / "g.dbg"),
@@ -93,7 +92,9 @@ def seeded_case(tmp_path_factory):
     copies differ by 4 SNPs, so the graph has 4 bubbles.  Four exact reads
     of 350-400 bases cover the shared stretch of both haplotypes.  The draft
     is the true graph with one bubble's copy numbers moved to [2, 0]: a
-    +-1 cycle off the truth, so the orig and true scores differ."""
+    +-1 cycle off the truth, so the orig and true scores differ.  The case
+    is built with the port's objects and written by the port's writers;
+    the JAX CLI, the reference, reads the same files."""
     d = tmp_path_factory.mktemp("seeded_case")
     s = bytearray(generate(800, 13))
     s2 = bytearray(s)
@@ -112,7 +113,7 @@ def seeded_case(tmp_path_factory):
                 if all(sizes[e] <= 41 for e in range(len(cn)) if cn[e] != true[e]))
     dbg.set_copy_nums(flip)
     Dataset(genome, reads, PHMMParams.uniform(0.001)).to_json_file(d / "data.json")
-    jax_out.to_dbg_file(dbg, d / "draft.dbg")
+    TO.to_dbg_file(dbg, d / "draft.dbg")
     reads.to_fasta(d / "reads.fa")
     return d, genome.genome_size()
 
@@ -167,7 +168,7 @@ def test_cli_sample_matches_jax(seeded_case, capsys):
     ref = TO.from_post_file(d / "jax.post")
     got = TO.from_post_file(d / "torch.post")
     assert got.max_copy_nums() == ref.max_copy_nums()
-    assert got.max_copy_nums() != jax_out.from_dbg_file(
+    assert got.max_copy_nums() != TO.from_dbg_file(
         d / "draft.dbg").get_copy_nums()  # the climb moved
     assert {tuple(s.copy_nums) for s in got.samples} == {
         tuple(s.copy_nums) for s in ref.samples}

@@ -1,8 +1,9 @@
 """The K1, K2 and K3 CUDA kernels against their plain PyTorch twins, on an
 NVIDIA GPU.
 
-Every test here needs a card and skips without one.  This file imports no
-JAX, so it runs on a machine that has only PyTorch for CUDA:
+Every test here needs a card and skips without one.  This file imports
+nothing of JAX or of the JAX package, so it runs on a machine that has only
+PyTorch for CUDA:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -11,13 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from dbgphmm_tpu.e2e import ReadType, generate_dataset
-from dbgphmm_tpu.multi_dbg import MultiDbg
-from dbgphmm_tpu.multi_dbg.seed import seed_mappings_arrays
-from dbgphmm_tpu.phmm.params import PHMMParams
-from dbgphmm_tpu.phmm.template import make_template
-from dbgphmm_tpu.seq import genome as G
+from dbgphmm_tpu_torch.e2e import ReadType, generate_dataset
+from dbgphmm_tpu_torch.multi_dbg import MultiDbg
 from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+from dbgphmm_tpu_torch.multi_dbg.seed import seed_mappings_arrays
+from dbgphmm_tpu_torch.phmm.params import PHMMParams
+from dbgphmm_tpu_torch.phmm.template import make_template
+from dbgphmm_tpu_torch.seq import genome as G
 from dbgphmm_tpu_torch.ops import mapped_scorer as T
 from dbgphmm_tpu_torch.ops.forward import pad_reads
 from dbgphmm_tpu_torch.ops.sparse import pad_mappings, precompute_positions
@@ -86,6 +87,58 @@ def test_kernel_matches_twin(cuda, A, D, NC):
     for g in (1, 2, 4, 8):
         np.testing.assert_array_equal(
             run_k1(s, cuda, torch.float32, group=g), got)
+
+
+@pytest.mark.parametrize("A,D,NC", [(16, 4, 128), (32, 4, 256), (64, 3, 384),
+                                    (128, 3, 256)])
+def test_kernel_matches_twin_sparse_columns(cuda, A, D, NC):
+    """K1 and K2 where, as on a de Bruijn graph, most positions have one
+    parent per slot and one out-edge per source node (the kernels' shortcut
+    that skips negligible log-sum-exp terms), with a few branch positions;
+    eff columns past n_live are 0 and the wrappers stage only n_live.
+    Tolerances as in test_kernel_matches_twin; the forced groups agree bit
+    for bit."""
+    s = synthetic_streams(A, D, NC, C=21, B=12, L=300, seed=A + 3)
+    rng = np.random.default_rng(A)
+    branch = rng.random((300, 1, 12, A)) < 0.05
+    for k in ("prevp", "curp"):
+        s[k][:, 1:] = np.where(branch, s[k][:, 1:], -1)
+    s["dence"][:, 1:] = np.where(branch, s["dence"][:, 1:], NC - 1)
+    s["dence"][:, 0] = np.where(branch[:, 0], s["dence"][:, 0], s["numce"])
+    n_live = NC // 2
+    s["numce"] %= n_live
+    s["dence"] = np.where(s["dence"] == NC - 1, NC - 1, s["dence"] % n_live)
+    s["eff"][:, n_live:] = 0.0
+    assert T.live_columns(torch.as_tensor(s["eff"], device=cuda)) == n_live
+    for fn, twin in ((T.mapped_scores_log, T.mapped_scores_log_reference),
+                     (T.mapped_scores_log_single,
+                      T.mapped_scores_log_single_reference)):
+        got = run_k1(s, cuda, torch.float32, fn=fn)
+        ref = run_k1(s, cuda, torch.float64, fn=twin)
+        ref32 = run_k1(s, cuda, torch.float32, fn=twin)
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+        fin = np.isfinite(ref)
+        assert fin.any()
+        assert (np.abs(got[fin] - ref[fin])
+                <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
+        np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
+    for g in (1, 8):
+        np.testing.assert_array_equal(
+            run_k1(s, cuda, torch.float32, group=g),
+            run_k1(s, cuda, torch.float32))
+
+
+def test_log_kernels_refuse_a_nonzero_sentinel_column(cuda):
+    """K1 and K2 stage eff up to its last non-zero column; the sentinel
+    column NC - 1 (the id of an empty slot or a missing out-edge) must be
+    0, and a table where it is not is refused before any launch."""
+    s = synthetic_streams(32, 3, 256, C=5, B=4, L=50, seed=7)
+    s["eff"][2, 255] = 1.0
+    for fn in (T.mapped_scores_log, T.mapped_scores_log_single):
+        launches = fn.launches
+        with pytest.raises(ValueError, match="sentinel"):
+            run_k1(s, cuda, torch.float32, fn=fn)
+        assert fn.launches == launches
 
 
 def blocked_case(A, D, NC, seed):

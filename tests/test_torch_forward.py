@@ -10,37 +10,43 @@ import numpy as np
 import pytest
 import torch
 
-from dbgphmm_tpu.multi_dbg import MultiDbg
+from dbgphmm_tpu import multi_dbg as jax_multi_dbg
 from dbgphmm_tpu.ops import forward as JF
-from dbgphmm_tpu.phmm.model import linear_phmm
-from dbgphmm_tpu.phmm.params import PHMMParams
-from dbgphmm_tpu.seq import genome as G
+from dbgphmm_tpu.phmm import model as jax_model
+from dbgphmm_tpu.phmm import params as jax_params
+from dbgphmm_tpu.seq import genome as jax_genome
+from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
 from dbgphmm_tpu_torch.ops import forward as TF
+from dbgphmm_tpu_torch.phmm import model as port_model
+from dbgphmm_tpu_torch.phmm import params as port_params
+from dbgphmm_tpu_torch.seq import genome as port_genome
 
 REPO = Path(__file__).resolve().parent.parent
 ARRAYS = ("emission", "init_logp", "parent_idx", "parent_logt", "child_idx",
           "child_logt")
 
 
-def _models():
-    params = PHMMParams.uniform(0.01)
-    g = G.tandem_repeat_polyploid_with_unique_homo_ends(
+def _models(multi_dbg, model, params, genome):
+    """The test models, built by one package's host layers."""
+    p = params.PHMMParams.uniform(0.01)
+    g = genome.tandem_repeat_polyploid_with_unique_homo_ends(
         10, 4, 0, 0.0, 0, 20, 2, 0.05, 0)
-    dbg = MultiDbg.from_styled_seqs(8, list(g))
+    dbg = multi_dbg.MultiDbg.from_styled_seqs(8, list(g))
     return {
-        "linear": linear_phmm(b"ATTCGATCGTTAGGCAT", params),
-        "dbg_non_zero": dbg.to_phmm(params, mode="non_zero"),
-        "dbg_normal": dbg.to_phmm(params),
+        "linear": model.linear_phmm(b"ATTCGATCGTTAGGCAT", p),
+        "dbg_non_zero": dbg.to_phmm(p, mode="non_zero"),
+        "dbg_normal": dbg.to_phmm(p),
     }
 
 
-MODELS = _models()
+# the port's models (from its own host layers) and the JAX package's
+MODELS = _models(port_multi_dbg, port_model, port_params, port_genome)
+JAX_MODELS = _models(jax_multi_dbg, jax_model, jax_params, jax_genome)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_pad_model_matches_jax(name):
-    model = MODELS[name]
-    ours, ref = TF.pad_model(model), JF.pad_model(model)
+    ours, ref = TF.pad_model(MODELS[name]), JF.pad_model(JAX_MODELS[name])
     for f in ARRAYS:
         a, b = getattr(ours, f), getattr(ref, f)
         assert a.dtype == b.dtype, f
@@ -51,9 +57,8 @@ def test_pad_model_matches_jax(name):
 def test_to_device_matches_jax(name):
     """float64 on the CPU: every array and log transition equals the JAX
     package's DeviceModel exactly."""
-    model = MODELS[name]
-    ours = TF.to_device(model, "cpu")
-    ref = JF.to_device(model, dtype=jnp.float64)
+    ours = TF.to_device(MODELS[name], "cpu")
+    ref = JF.to_device(JAX_MODELS[name], dtype=jnp.float64)
     assert ours.dtype == torch.float64 and ours.n_max_gaps == ref.n_max_gaps
     for f in ARRAYS:
         np.testing.assert_array_equal(getattr(ours, f).numpy(),
@@ -65,12 +70,11 @@ def test_to_device_matches_jax(name):
 
 
 def test_device_model_from_numpy_round_trips():
-    model = MODELS["dbg_non_zero"]
-    ref = JF.to_device(model, dtype=jnp.float64)
+    ref = JF.to_device(JAX_MODELS["dbg_non_zero"], dtype=jnp.float64)
     fields = {f: np.asarray(getattr(ref, f)) for f in ARRAYS}
     fields.update(lt=np.asarray(ref.lt), n_max_gaps=ref.n_max_gaps)
     dm = TF.device_model_from_numpy(fields, "cpu")
-    direct = TF.to_device(model, "cpu")
+    direct = TF.to_device(MODELS["dbg_non_zero"], "cpu")
     for f in ARRAYS:
         assert getattr(dm, f).dtype == getattr(direct, f).dtype
         assert torch.equal(getattr(dm, f), getattr(direct, f)), f

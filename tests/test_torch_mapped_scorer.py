@@ -24,8 +24,12 @@ from dbgphmm_tpu.ops.sparse import (
 from dbgphmm_tpu.phmm.params import PHMMParams
 from dbgphmm_tpu.phmm.template import make_template
 from dbgphmm_tpu.seq.collection import ReadCollection, StyledSequence
+from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
 from dbgphmm_tpu_torch.ops import mapped_scorer as T
 from dbgphmm_tpu_torch.ops import sparse as TS
+from dbgphmm_tpu_torch.phmm import params as port_params
+from dbgphmm_tpu_torch.phmm import template as port_template
+from dbgphmm_tpu_torch.seq import collection as port_collection
 
 STREAM_FIELDS = ("codes", "emis", "numce", "selfp", "prevp", "curp", "dence",
                  "lens")
@@ -48,7 +52,15 @@ def setup():
     candidates = [dbg.get_copy_nums()] + [
         cn for cn, _i in to_short_neighbors(dbg, 8, 2)[:3]
     ] + [[0] * dbg.n_edges_compact()]  # last one: every read blocked (-inf)
-    return dbg, params, tpl, pos, codes, lens, candidates
+    # the port's template and positions, from its own graph of the same
+    # haplotypes and the same (JAX-decoded) mapping
+    dbg_t = port_multi_dbg.MultiDbg.from_styled_seqs(
+        8, [port_collection.StyledSequence.linear(h) for h in (h1, h2)])
+    tpl_t = port_template.make_template(
+        dbg_t, port_params.PHMMParams.uniform(0.001))
+    pos_t = TS.precompute_positions(mn, tpl_t.parent_idx,
+                                    parent_exists=tpl_t.parent_exists)
+    return dbg, params, tpl, pos, codes, lens, candidates, tpl_t, pos_t
 
 
 def _stream_tensors(s):
@@ -69,19 +81,17 @@ def _twin(s, cands, params, dtype):
 
 
 def test_positions_match_jax(setup):
-    """The port builds cpp/positions.cpp into its own build directory;
-    the slot positions are identical."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
-    got = TS.precompute_positions(pos.map_nodes, tpl.parent_idx,
-                                  parent_exists=tpl.parent_exists)
-    for a, b in zip(got, pos):
+    """The port builds its copy of positions.cpp into its own build
+    directory; from its own template the slot positions are identical."""
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    for a, b in zip(pos_t, pos):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
 
 
 def test_build_streams_and_eff_tables_match_jax(setup):
-    dbg, params, tpl, pos, codes, lens, cands = setup
-    ours = T.build_streams(tpl, pos, codes, lens)
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    ours = T.build_streams(tpl_t, pos_t, codes, lens)
     ref = J.build_streams(tpl, pos, codes, lens, dbg)
     for f in STREAM_FIELDS + ("emittable_len", "emittable_len_full"):
         a, b = getattr(ours, f), getattr(ref, f)
@@ -97,8 +107,8 @@ def test_twin_matches_jax_f64_mapped_kernel(setup):
     """The twin in float64 equals forward_scores_mapped_pos in float64 per
     read to 1e-6 nats (both are the same exact recursion; the twin's
     finite -1e30 sentinel changes nothing above it), -inf where it is."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
-    s = T.build_streams(tpl, pos, codes, lens)
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    s = T.build_streams(tpl_t, pos_t, codes, lens)
     calls = T.mapped_scores_log_reference.calls
     launches = T.mapped_scores_log.launches
     got = _twin(s, cands, params, torch.float64)
@@ -122,7 +132,7 @@ def test_twin_matches_jax_packed_kernel(setup):
     """The twin in float32 against the JAX packed Pallas kernel (K1) in
     interpret mode at P=8, CL=1, renorm_every=2: atol 2e-3, rtol 1e-5, the
     bound the JAX tests use for float32."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
     s = J.build_streams(tpl, pos, codes, lens, dbg)
     A = s.emis.shape[2]
     eff, linv, _cp = J.pack_eff_tables(s, cands, 8, 1, A)
@@ -135,7 +145,7 @@ def test_twin_matches_jax_packed_kernel(setup):
         n_max_gaps=params.n_max_gaps, TL=8, P=8, CL=1, interpret=True,
         renorm_every=2))
     C, B = len(cands), codes.shape[0]
-    got = _twin(T.build_streams(tpl, pos, codes, lens), cands, params,
+    got = _twin(T.build_streams(tpl_t, pos_t, codes, lens), cands, params,
                 torch.float32)
     a, b = got[:C, :B], ref[:C, :B]
     np.testing.assert_array_equal(np.isneginf(a), np.isneginf(b))
@@ -147,7 +157,7 @@ def _widened(setup, n_tile=5, wide_every=4, width=40):
     """The fixture tiled to 20 reads, every 4th read's sets padded with
     extra (valid, unrelated) nodes up to ``width`` slots, so the width sort
     puts reads of A=16 and A=64 into different read chunks."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
     codes = np.concatenate([codes] * n_tile)
     lens = np.concatenate([lens] * n_tile)
     mn = np.concatenate([pos.map_nodes] * n_tile)
@@ -162,7 +172,9 @@ def _widened(setup, n_tile=5, wide_every=4, width=40):
             wide[b, j, len(row):] = extra
     pos_w = precompute_positions(wide, tpl.parent_idx,
                                  parent_exists=tpl.parent_exists)
-    return codes, lens, pos_w
+    pos_w_t = TS.precompute_positions(wide, tpl_t.parent_idx,
+                                      parent_exists=tpl_t.parent_exists)
+    return codes, lens, pos_w, pos_w_t
 
 
 def test_scorer_matches_jax_with_mixed_width_read_chunks(setup):
@@ -171,9 +183,9 @@ def test_scorer_matches_jax_with_mixed_width_read_chunks(setup):
     case where the JAX Pallas scorer's chunk rows disagree (CAND_SUB sized
     from the widest chunk) — and per_read comes back in the original read
     order."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
-    codes, lens, pos_w = _widened(setup)
-    scorer = T.MappedScorer(tpl, pos_w, codes, lens, tpl.params, "cpu",
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    codes, lens, pos_w, pos_w_t = _widened(setup)
+    scorer = T.MappedScorer(tpl_t, pos_w_t, codes, lens, tpl_t.params, "cpu",
                             read_chunk=8)
     widths = sorted({s.emis.shape[2] for s in scorer.chunks})
     assert len(scorer.chunks) == 3 and widths == [16, 64], widths
@@ -193,3 +205,29 @@ def test_scorer_matches_jax_with_mixed_width_read_chunks(setup):
             jnp.asarray(pos_w.map_nodes), jnp.asarray(pos_w.prev_pos),
             jnp.asarray(pos_w.cur_pos), jnp.asarray(pos_w.self_pos)))
         np.testing.assert_allclose(per[c], ref_r, rtol=0, atol=1e-6)
+
+
+def test_live_columns_and_live_degree_columns(setup):
+    """What the K1 / K2 wrappers derive from their inputs: eff columns from
+    ``live_columns`` on are 0 for every candidate and the one before is not
+    (the kernels stage only the ones before), and ``live_degree_columns``
+    is, per position, the count of leading degree columns any slot uses."""
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    for s in (T.build_streams(tpl_t, pos_t, codes, lens),
+              T.MappedScorer(tpl_t, pos_t, codes, lens, params, "cpu").chunks[0]):
+        eff, _total = T._eff_matrix(s, cands)
+        n_live = T.live_columns(torch.as_tensor(eff))
+        assert n_live < s.nc_pad - 1
+        assert not eff[:, n_live:].any() and eff[:, n_live - 1].any()
+        prevp, curp, dence = (torch.as_tensor(np.asarray(getattr(s, f)),
+                                              dtype=torch.int32)
+                              for f in ("prevp", "curp", "dence"))
+        got = T.live_degree_columns(prevp, curp, dence, n_live).numpy()
+        L, D, B, A = s.prevp.shape
+        ref = np.ones((L, B), dtype=np.int32)
+        for d in range(1, D):
+            used = ((s.prevp[:, d] >= 0) | (s.curp[:, d] >= 0)
+                    | (s.dence[:, d] < n_live)).any(axis=-1)
+            ref = np.where(used, d + 1, ref)
+        np.testing.assert_array_equal(got, ref)
+        assert 1 < got.max() <= D

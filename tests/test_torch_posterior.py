@@ -13,21 +13,32 @@ import pytest
 
 import dbgphmm_tpu.multi_dbg.posterior as JP
 import dbgphmm_tpu_torch.multi_dbg.posterior as TP
-from dbgphmm_tpu.multi_dbg import MultiDbg
-from dbgphmm_tpu.multi_dbg.neighbors import to_short_neighbors
-from dbgphmm_tpu.phmm.params import PHMMParams
-from dbgphmm_tpu.seq.collection import ReadCollection, StyledSequence
-from dbgphmm_tpu.seq.genome import Genome
+from dbgphmm_tpu import multi_dbg as jax_multi_dbg
+from dbgphmm_tpu.phmm import params as jax_params
+from dbgphmm_tpu.seq import collection as jax_collection
+from dbgphmm_tpu.seq import genome as jax_genome
+from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
 from dbgphmm_tpu_torch.multi_dbg import output as TO
+from dbgphmm_tpu_torch.multi_dbg.neighbors import to_short_neighbors
+from dbgphmm_tpu_torch.phmm import params as port_params
+from dbgphmm_tpu_torch.seq import collection as port_collection
+from dbgphmm_tpu_torch.seq import genome as port_genome
+
+MultiDbg = port_multi_dbg.MultiDbg
+PHMMParams = port_params.PHMMParams
 
 
-def small_diploid():
+def small_diploid(jax=False):
+    """The two haplotypes, as the JAX package's objects or the port's."""
+    col, gen = ((jax_collection, jax_genome) if jax
+                else (port_collection, port_genome))
     h1 = b"TTAGGCTTCGATCGAATGCC"
     h2 = b"TTAGGCTTGGATCGAATGCC"
-    return Genome([StyledSequence.linear(h1), StyledSequence.linear(h2)])
+    return gen.Genome([col.StyledSequence.linear(h1),
+                       col.StyledSequence.linear(h2)])
 
 
-def perfect_reads(genome, coverage=10, read_len=12, seed=0):
+def perfect_reads(genome, coverage=10, read_len=12, seed=0, jax=False):
     rng = np.random.default_rng(seed)
     reads = []
     for s in genome:
@@ -35,7 +46,8 @@ def perfect_reads(genome, coverage=10, read_len=12, seed=0):
         for _ in range(n):
             st = rng.integers(0, len(s.seq) - read_len + 1)
             reads.append(s.seq[st : st + read_len])
-    return ReadCollection(reads)
+    col = jax_collection if jax else port_collection
+    return col.ReadCollection(reads)
 
 
 @pytest.fixture
@@ -50,17 +62,20 @@ def test_infer_by_extension_matches_jax(seeded):
     the same max_copy_nums at every stage, the same final copy numbers, and
     the likelihoods of the samples both final posteriors hold agree to 1e-6
     relative."""
-    g = small_diploid()
-    reads = perfect_reads(g, coverage=12, read_len=16, seed=1)
-    params = PHMMParams.uniform(0.001)
-    draft = MultiDbg.from_styled_seqs(8, list(g))
-    assert draft.get_copy_nums() == [2, 1, 1, 2]
-    draft.set_copy_nums([1, 0, 1, 1])  # a +-1 cycle away from the truth
     results = {}
-    for name, run in (
-        ("jax", lambda **kw: JP.infer_posterior_by_extension(**kw)),
-        ("torch", lambda **kw: TP.infer_posterior_by_extension(device="cpu", **kw)),
+    for name, jax, dbg_mod, params_mod, run in (
+        ("jax", True, jax_multi_dbg, jax_params,
+         lambda **kw: JP.infer_posterior_by_extension(**kw)),
+        ("torch", False, port_multi_dbg, port_params,
+         lambda **kw: TP.infer_posterior_by_extension(device="cpu", **kw)),
     ):
+        # each package runs on its own objects, built from the same inputs
+        g = small_diploid(jax)
+        reads = perfect_reads(g, coverage=12, read_len=16, seed=1, jax=jax)
+        params = params_mod.PHMMParams.uniform(0.001)
+        draft = dbg_mod.MultiDbg.from_styled_seqs(8, list(g))
+        assert draft.get_copy_nums() == [2, 1, 1, 2]
+        draft.set_copy_nums([1, 0, 1, 1])  # a +-1 cycle away from the truth
         stages = []
         dbg_final, post, _paths, _maps = run(
             k_max=9, dbg_init=draft,

@@ -16,9 +16,13 @@ from dbgphmm_tpu.ops import pad_reads, to_device
 from dbgphmm_tpu.ops.adaptive import mappings_refine as jax_refine
 from dbgphmm_tpu.phmm.params import PHMMParams
 from dbgphmm_tpu.seq import genome as G
+from dbgphmm_tpu_torch import e2e as port_e2e
+from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
 from dbgphmm_tpu_torch.multi_dbg import posterior as TP
 from dbgphmm_tpu_torch.ops.adaptive import mappings_refine
 from dbgphmm_tpu_torch.ops.forward import device_model_from_numpy
+from dbgphmm_tpu_torch.phmm import params as port_params
+from dbgphmm_tpu_torch.seq import genome as port_genome
 
 
 @pytest.fixture(scope="module")
@@ -32,7 +36,18 @@ def setup():
     reads = list(ds.reads)[:12]
     params = PHMMParams.uniform(0.005)
     seeds = seed_mappings_arrays(dbg, reads)
-    return dbg, reads, params, seeds
+    # the port's graph, parameters and reads, from the same inputs
+    g_t = port_genome.tandem_repeat_polyploid_with_unique_homo_ends(
+        50, 4, 0, 0.02, 0, 100, 2, 0.01, 0
+    )
+    params_t = port_params.PHMMParams.uniform(0.005)
+    ds_t = port_e2e.generate_dataset(g_t, 0, 6, 200,
+                                     port_e2e.ReadType.FIXED_SIZE_FRAGMENT,
+                                     params_t)
+    reads_t = list(ds_t.reads)[:12]
+    assert [bytes(r) for r in reads_t] == [bytes(r) for r in reads]
+    dbg_t = port_multi_dbg.MultiDbg.from_styled_seqs(16, list(g_t))
+    return dbg, reads, params, seeds, (dbg_t, reads_t, params_t)
 
 
 def _jax_fields(dm):
@@ -48,7 +63,7 @@ def test_mappings_refine_matches_jax(setup):
     """Same model (carried over with device_model_from_numpy), same codes
     and seeded hint: logp to rtol 1e-9, map_nodes equal, finite map_logp
     to atol 1e-8."""
-    dbg, reads, params, seeds = setup
+    dbg, reads, params, seeds, _port = setup
     dm = to_device(dbg.to_phmm(params, mode="non_zero"), dtype=jnp.float64)
     codes, lens = pad_reads(reads)
     hint = JP._pad_hint_nodes(
@@ -77,12 +92,12 @@ def test_generate_mappings_with_seed_hint_matches_jax(setup):
     """generate_mappings(hint=seeds, hint_regen=False) in both packages:
     read_logps to rtol 1e-9, identical trimmed node sets, finite logps to
     atol 1e-8."""
-    dbg, reads, params, seeds = setup
+    dbg, reads, params, seeds, (dbg_t, reads_t, params_t) = setup
     hint = lambda M: M.Mappings(seeds, [np.zeros(a.shape) for a in seeds],
                                 None, None, -1)
     ref = JP.generate_mappings(dbg, params, reads, hint=hint(JP),
                                hint_regen=False)
-    got = TP.generate_mappings(dbg, params, reads, "cpu", hint=hint(TP),
+    got = TP.generate_mappings(dbg_t, params_t, reads_t, "cpu", hint=hint(TP),
                                hint_regen=False)
     np.testing.assert_allclose(got.read_logps, ref.read_logps, rtol=1e-9, atol=0)
     np.testing.assert_allclose(got.anchor_logps, ref.anchor_logps, rtol=1e-9,

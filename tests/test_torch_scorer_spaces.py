@@ -29,8 +29,13 @@ from dbgphmm_tpu.phmm.params import PHMMParams
 from dbgphmm_tpu.phmm.template import make_template
 from dbgphmm_tpu.seq.collection import ReadCollection, StyledSequence
 from dbgphmm_tpu.seq.random_seq import generate
+from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
 from dbgphmm_tpu_torch.multi_dbg import posterior as TP
 from dbgphmm_tpu_torch.ops import mapped_scorer as T
+from dbgphmm_tpu_torch.ops import sparse as TS
+from dbgphmm_tpu_torch.phmm import params as port_params
+from dbgphmm_tpu_torch.phmm import template as port_template
+from dbgphmm_tpu_torch.seq import collection as port_collection
 
 from test_torch_mapped_scorer import _stream_tensors, _widened, setup  # noqa: F401
 
@@ -51,7 +56,7 @@ def _twin(space, s, cands, params, dtype):
 
 
 def _jax_kernel(space, setup, cands):
-    dbg, params, tpl, pos, codes, lens, _c = setup
+    dbg, params, tpl, pos, codes, lens, _c, _tt, _pt = setup
     s = J.build_streams(tpl, pos, codes, lens, dbg)
     eff, inv_total = J.eff_tables(s, cands)
     args = [jnp.asarray(getattr(s, f)) for f in
@@ -76,7 +81,7 @@ def _blocked(setup):
     cross: edge 0 (the candidate of test_pallas_log_kernel_matches_f64;
     every read -inf, in the reference too) and the last edge (reads
     re-enter through the Begin chain: very low, finite in log space)."""
-    cands = setup[-1]
+    cands = setup[6]
     zero_first, zero_last = list(cands[0]), list(cands[0])
     zero_first[0] = zero_last[-1] = 0
     return cands + [zero_first, zero_last]
@@ -88,10 +93,10 @@ def test_twin_f32_matches_jax_pallas_kernel(setup, space):
     interpret mode: atol 2e-3, rtol 1e-5 (tests/test_pallas_mapped.py:84),
     the same -inf pattern.  The K2 twin's closed-form Begin chain differs
     from the TPU arithmetic only by float32 rounding on these short reads."""
-    dbg, params, tpl, pos, codes, lens, _c = setup
+    dbg, params, tpl, pos, codes, lens, _c, tpl_t, pos_t = setup
     cands = _blocked(setup)
     ref = _jax_kernel(space, setup, cands)
-    got = _twin(space, T.build_streams(tpl, pos, codes, lens), cands, params,
+    got = _twin(space, T.build_streams(tpl_t, pos_t, codes, lens), cands, params,
                 torch.float32)
     C, B = len(cands), codes.shape[0]
     a, b = got[:C, :B], ref[:C, :B]
@@ -104,10 +109,10 @@ def test_linear_twin_f64_matches_forward_scores_mapped_linear(setup):
     """The K3 twin in float64 equals the XLA scaled-linear recursion in
     float64 per read to 1e-6 nats, -inf where it is (the all-zero
     candidate)."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
     calls = T.mapped_scores_linear_reference.calls
     launches = T.mapped_scores_linear.launches
-    got = _twin("linear", T.build_streams(tpl, pos, codes, lens), cands,
+    got = _twin("linear", T.build_streams(tpl_t, pos_t, codes, lens), cands,
                 params, torch.float64)
     assert T.mapped_scores_linear_reference.calls == calls + 1
     assert T.mapped_scores_linear.launches == launches
@@ -124,11 +129,11 @@ def test_log_single_twin_f64_matches_forward_scores_mapped_pos(setup):
     """The K2 twin in float64 equals forward_scores_mapped_pos in float64
     per read to 1e-6 nats, including the blocked candidate, and is -inf
     exactly where the reference is."""
-    dbg, params, tpl, pos, codes, lens, _c = setup
+    dbg, params, tpl, pos, codes, lens, _c, tpl_t, pos_t = setup
     cands = _blocked(setup)
     calls = T.mapped_scores_log_single_reference.calls
     launches = T.mapped_scores_log_single.launches
-    got = _twin("log", T.build_streams(tpl, pos, codes, lens), cands, params,
+    got = _twin("log", T.build_streams(tpl_t, pos_t, codes, lens), cands, params,
                 torch.float64)
     assert T.mapped_scores_log_single_reference.calls == calls + 1
     assert T.mapped_scores_log_single.launches == launches
@@ -147,9 +152,9 @@ def test_log_single_twin_f64_matches_forward_scores_mapped_pos(setup):
 def test_log_single_twin_matches_k1_twin(setup, dtype, atol):
     """K2 and K1 compute the same quantity and differ only in how often
     they renormalise: per read, the same -inf pattern and values."""
-    dbg, params, tpl, pos, codes, lens, _c = setup
+    dbg, params, tpl, pos, codes, lens, _c, tpl_t, pos_t = setup
     cands = _blocked(setup)
-    s = T.build_streams(tpl, pos, codes, lens)
+    s = T.build_streams(tpl_t, pos_t, codes, lens)
     k2 = _twin("log", s, cands, params, dtype)
     eff, total = T._eff_matrix(s, cands)
     np_dt = np.float64 if dtype == torch.float64 else np.float32
@@ -169,9 +174,9 @@ def test_scorer_space_matches_jax_pallas_scorer(setup, space):
     mode, with read chunks of A=16 and A=64 side by side in the port
     (tests/test_pallas_mapped.py:163-188 and :366): sums to atol 5e-3,
     rtol 1e-5 (float64 twin against float32 Pallas), the same ok flags."""
-    dbg, params, tpl, pos, codes, lens, cands = setup
-    codes, lens, pos_w = _widened(setup)
-    ours = T.MappedScorer(tpl, pos_w, codes, lens, tpl.params, "cpu",
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    codes, lens, pos_w, pos_w_t = _widened(setup)
+    ours = T.MappedScorer(tpl_t, pos_w_t, codes, lens, tpl_t.params, "cpu",
                           read_chunk=8, space=space)
     assert sorted({s.emis.shape[2] for s in ours.chunks}) == [16, 64]
     ref = J.PallasMappedScorer(tpl, pos_w, codes, lens, tpl.params,
@@ -187,14 +192,15 @@ def test_scorer_space_matches_jax_pallas_scorer(setup, space):
 
 
 def test_log_sibling_shares_the_uploaded_streams(setup):
-    dbg, params, tpl, pos, codes, lens, cands = setup
-    lin = T.MappedScorer(tpl, pos, codes, lens, tpl.params, "cpu",
+    dbg, params, tpl, pos, codes, lens, cands, tpl_t, pos_t = setup
+    lin = T.MappedScorer(tpl_t, pos_t, codes, lens, tpl_t.params, "cpu",
                          space="linear")
     sib = lin.log_sibling()
     assert (lin.space, sib.space) == ("linear", "log")
     assert sib._dev is lin._dev and sib.chunks is lin.chunks
     with pytest.raises(ValueError, match="space"):
-        T.MappedScorer(tpl, pos, codes, lens, tpl.params, "cpu", space="lin")
+        T.MappedScorer(tpl_t, pos_t, codes, lens, tpl_t.params, "cpu",
+                       space="lin")
 
 
 @pytest.fixture(scope="module")
@@ -204,7 +210,9 @@ def long_bubble():
     so a candidate that moves the branch's copy onto the other one forces
     them through ~117 positions of copy-0 edges.  The scaled-linear
     recursion underflows there even in float64 (the Begin chain loses ~3.6
-    decades a base); the log-space recursion stays finite."""
+    decades a base); the log-space recursion stays finite.  The mapping is
+    the JAX package's decode (the port has no small-graph decode); the
+    graph, template and positions the port scores with are its own."""
     a, x, y, b = (generate(n, s) for n, s in ((40, 1), (110, 2), (110, 3),
                                                (40, 4)))
     h1, h2 = a + x + b, a + y + b
@@ -220,7 +228,14 @@ def long_bubble():
                                parent_exists=tpl.parent_exists)
     cands = [dbg.get_copy_nums()] + [cn for cn, _i in
                                      to_short_neighbors(dbg, 8, 2)]
-    return dbg, tpl, pos, codes, lens, cands
+    dbg_t = port_multi_dbg.MultiDbg.from_styled_seqs(
+        8, [port_collection.StyledSequence.linear(h) for h in (h1, h2)])
+    assert dbg_t.get_copy_nums() == dbg.get_copy_nums()
+    tpl_t = port_template.make_template(
+        dbg_t, port_params.PHMMParams.uniform(0.001))
+    pos_t = TS.precompute_positions(mn, tpl_t.parent_idx,
+                                    parent_exists=tpl_t.parent_exists)
+    return dbg_t, tpl_t, pos_t, codes, lens, cands
 
 
 def test_score_candidates_rescues_the_linear_scorers_flagged_candidates(

@@ -1,7 +1,7 @@
-"""The native seeder (``seed_read_native`` over ``cpp/seedchain.cpp``)
-against the pure-Python seeder (``seed_read``) of ``dbgphmm_tpu.multi_dbg.
-seed``.  The port imports this code as it is, and every k-stage of its main
-path starts from it.
+"""The native seeder (``seed_read_native`` over ``csrc/host/seedchain.cpp``)
+against the pure-Python seeder (``seed_read``) of the port's copy of the
+JAX package's seeder, ``dbgphmm_tpu_torch.multi_dbg.seed``.  Every k-stage
+of the port's main path starts from it.
 
 The two keep the same candidate set at every position where neither reaches
 the union width cap ``UNION_WIDTH``.  At the cap they may keep different
@@ -14,12 +14,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from dbgphmm_tpu.e2e import Dataset, ReadType, generate_dataset
-from dbgphmm_tpu.multi_dbg import MultiDbg
-from dbgphmm_tpu.multi_dbg import output as out
-from dbgphmm_tpu.multi_dbg import seed as S
-from dbgphmm_tpu.phmm.params import PHMMParams
-from dbgphmm_tpu.seq import genome as G
+from dbgphmm_tpu_torch.e2e import Dataset, ReadType, generate_dataset
+from dbgphmm_tpu_torch.multi_dbg import MultiDbg
+from dbgphmm_tpu_torch.multi_dbg import output as out
+from dbgphmm_tpu_torch.multi_dbg import seed as S
+from dbgphmm_tpu_torch.phmm.params import PHMMParams
+from dbgphmm_tpu_torch.seq import genome as G
 
 BENCH = Path(__file__).resolve().parent.parent / "data" / "bench"
 
@@ -27,8 +27,8 @@ BENCH = Path(__file__).resolve().parent.parent / "data" / "bench"
 @pytest.fixture(scope="module")
 def native():
     if S._seed_lib() is None:
-        pytest.skip("the g++-built seeder library (cpp/seedchain.cpp) did "
-                    "not load")
+        pytest.skip("the g++-built seeder library (csrc/host/seedchain.cpp) "
+                    "did not load")
 
 
 def _assert_same_sets(idx, reads):
