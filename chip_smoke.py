@@ -36,18 +36,28 @@ and the script exits non-zero:
                  bound()) and its share of it.
 5. k2_parity, k3_parity -- K2 and K3 on the real case plus one neighbour
                  that zeroes a compact edge those reads cross (the blocked
-                 candidate), and on the synthetic cases, against their
-                 float64 twins with K1's tolerance and the same best
-                 candidate.  K2: -inf exactly where the twin has it.  K3:
-                 every read that is -inf in float64 is -inf in the kernel,
-                 not the converse (float32 underflows ~11 bases into a
-                 copy-0 stretch, float64 only after ~90).  At the main path's
-                 shape the float64 twin is not run again: K2, and K3 where
-                 finite, are held against the K1 output k1_parity checked;
-                 one float32-twin call there gives plain_ms, and its real-case
-                 rows the float32 -inf pattern and max difference.  K3's
-                 blocked candidate goes through score_candidates with a
-                 linear scorer, which must rescue it through K2.
+                 candidate), and on the synthetic cases (at the picked rows
+                 per block and at MAX_ROWS), against their float64 twins
+                 with K1's tolerance and the same best candidate.  K2: -inf
+                 exactly where the twin has it.  K3: every read that is
+                 -inf in float64 is -inf in the kernel, not the converse
+                 (float32 underflows ~11 bases into a copy-0 stretch,
+                 float64 only after ~90).  At the main path's shape the
+                 float64 twin is not run again: K2, and K3 where finite,
+                 are held against the K1 output k1_parity checked, and the
+                 real case's rows of that batch (several rows per block)
+                 equal the real case's launch bit for bit; one float32-twin
+                 call there gives plain_ms, and its real-case rows the
+                 float32 -inf pattern and max difference.  Each phase prints
+                 the launches' rows per block, staged positions and
+                 resident blocks per SM, and the ptxas registers and spills
+                 of each of the kernel's instances (0 spills asserted).
+                 k2_parity also times K2 at one row per block and K1 at
+                 K2's rows per block on the main shape, and K2 at the
+                 rescue's shape (the draft and its rescue neighbours, all
+                 98 reads).  K3's blocked candidate goes through
+                 score_candidates with a linear scorer, which must rescue
+                 it through K2.
 6. refine     -- the first 4 reads' mappings refined on the CPU (float64)
                  against the GPU's (float32) from phase 3: read
                  log-likelihoods to 1e-4 relative, >= 99% of positions with
@@ -170,7 +180,9 @@ def ptxas_of(output):
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             k = re.search(r"log_scorerILi(\d+)ELi(\d+)E", m.group(1))
+            lin = re.search(r"linear_scorerILi(\d+)E", m.group(1))
             entry = (f"log_scorer<RW={k.group(1)},RENORM={k.group(2)}>" if k
+                     else f"linear_scorer<RW={lin.group(1)}>" if lin
                      else m.group(1))
             out.append({"entry": entry})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -331,7 +343,7 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
     assert len(cands) == 16, f"only {len(cands) - 1} rescue candidates"
     assert len(scorer.chunks) == 1
     s, dev_s = scorer.chunks[0], scorer._dev[0]
-    L, D, Bp, A = s.prevp.shape
+    L, D, _, A = s.prevp.shape
     lt = T.lin_params(params, np.float64)
     on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
     kw = dict(n_max_gaps=params.n_max_gaps)
@@ -342,9 +354,7 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
 
     def launch_of(eff):
         """The wrapper's (G, TP) for this eff table."""
-        return T._pick_log_launch(_build.mapped_scorer_lib(), eff.shape[0],
-                                  int(Bp), int(A), int(D), T.live_columns(eff),
-                                  2, device)
+        return T.launch_plan("K1", eff, dev_s[5])[:2]
 
     def parity(batch, what):
         """The kernel against the float64 twin on one batch; returns the
@@ -376,7 +386,7 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
     full = cands + [cn for cn, _i in
                     to_neighbor_copy_nums_and_infos(dbg, NeighborConfig())
                     if tuple(cn) not in seen]
-    if len(full) % T.MAX_GROUP == 0:
+    if len(full) % T.MAX_ROWS == 0:
         full.pop()
     args_f = k1_args(full, torch.float32)
     n_live = T.live_columns(args_f[0])
@@ -422,7 +432,7 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
                                           on(lt, torch.float64), **kw)
         r_np = r.cpu().numpy()
         case = dict(A=A_s, D=3, NC=NC_s, C=21)
-        for g in (None, T.MAX_GROUP):
+        for g in (None, T.MAX_ROWS):
             o_np = T.mapped_scores_log(*a32, group=g, **kw).double().cpu().numpy()
             e = check_close(o_np, r_np, f"synthetic A={A_s} group={g}")
             same_best(o_np, r_np, f"synthetic A={A_s} group={g}")
@@ -464,13 +474,51 @@ def blocked_candidate(device, ctx):
     return n0 + i
 
 
-def phase_parity(kid, device, params, dbg, ctx, genome_size):
+def rescue_shape(device, params, ds, dbg, maps98):
+    """The linear rescue's launch on the draft: every read, and the batch
+    K3 flags in ``scorer_spaces`` (the draft's copy numbers and its rescue
+    neighbours).  Returns (K2's arguments, candidates, reads)."""
+    import numpy as np
+    import torch
+
+    from dbgphmm_tpu_torch.multi_dbg.neighbors import to_rescue_neighbors
+    from dbgphmm_tpu_torch.ops import mapped_scorer as T
+    from dbgphmm_tpu_torch.ops.forward import pad_reads
+    from dbgphmm_tpu_torch.ops.sparse import pad_mappings, precompute_positions
+    from dbgphmm_tpu_torch.phmm.template import make_template
+
+    reads = list(ds.reads)
+    codes, lens = pad_reads(reads)
+    tpl = make_template(dbg, params)
+    width = max(n.shape[1] for n in maps98.nodes)
+    pos = precompute_positions(pad_mappings(maps98, codes.shape[1], width),
+                               tpl.parent_idx, parent_exists=tpl.parent_exists)
+    scorer = T.MappedScorer(tpl, pos, codes, lens, params, device)
+    assert len(scorer.chunks) == 1
+    coverage = sum(len(r) for r in reads) / ds.genome_size()
+    rescue = to_rescue_neighbors(dbg, maps98.to_node_freqs(dbg.n_edges_full()),
+                                 coverage)
+    # as sample_posterior scores them: each assignment once
+    cands = list({tuple(cn): list(cn) for cn in
+                  [dbg.get_copy_nums()] + [cn for cn, _i in rescue]}.values())
+    eff, total = T._eff_matrix(scorer.chunks[0], cands)
+    on = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    lt = T.lin_params(params, np.float32)
+    args = (on(eff), on(T.log_inv_total(total)), *scorer._dev[0],
+            torch.as_tensor(lt, device=device))
+    return args, len(cands), len(reads)
+
+
+def phase_parity(kid, device, params, dbg, ctx, genome_size, rescue_args=None):
     """K2 or K3 against its twin on the real case + the blocked candidate,
-    the synthetic cases, and K1's output at the main path's shape."""
+    the synthetic cases, and K1's output at the main path's shape.  K2
+    also at the rescue's shape (``rescue_args``), and the times that tell
+    its row grouping from its renormalisation apart."""
     import numpy as np
     import torch
 
     from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+    from dbgphmm_tpu_torch.ops import _build
     from dbgphmm_tpu_torch.ops import mapped_scorer as T
 
     t0 = time.perf_counter()
@@ -493,22 +541,31 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
         out = fn(*args([cn], torch.float32, inv_of), **kw)
         return out[0, :B].double().sum().item()
 
+    def plan(a, group=None):
+        return T.launch_plan(kid, a[0], a[7], group)._asdict()
+
+    stem = "libmapped_scorer_linear" if linear else "libmapped_scorer"
+    ptx = [e for e in ptxas_of(_build.BUILD_LOG[stem]["output"])
+           if linear or "RENORM=1" in e["entry"]]
+    assert len(ptx) == 3 and all(e.get("spill_stores") == 0 for e in ptx), ptx
+
     # the real case, 17 candidates x 16 reads, against the float64 twin
-    got = kernel(*args(real, torch.float32), **kw)[:, :B].double().cpu().numpy()
+    args_r = args(real, torch.float32)
+    got_t = kernel(*args_r, **kw)
+    got = got_t[:, :B].double().cpu().numpy()
     ref = twin(*args(real, torch.float64), **kw)[:, :B].cpu().numpy()
     err_real = check_close(got, ref, f"{kid} real case", underflow_ok=linear)
     same_best(got, ref, f"{kid} real case")
-    real_out = dict(C=len(real), B=B, max_abs_err=err_real,
+    real_out = dict(C=len(real), B=B, max_abs_err=err_real, launch=plan(args_r),
                     blocked_reads_neginf=int(np.isneginf(got[-1]).sum()),
                     blocked_reads_neginf_f64_twin=int(np.isneginf(ref[-1]).sum()))
     if linear:
         # float32 linear underflows on the blocked candidate's reads
         assert np.isneginf(got[-1]).any(), "K3 did not flag the blocked candidate"
 
-    # synthetic cases against the float64 twin; K3 at the picked group and
-    # at 8 candidates per block (21 candidates: a partial last group)
+    # synthetic cases against the float64 twin, at the picked group and at
+    # MAX_ROWS candidates per block (21 candidates: a partial last group)
     synth, err_max = [], err_real
-    groups = (None, T.MAX_GROUP) if linear else (None,)
     for A_s, NC_s in ((16, 256), (64, 384), (128, 256)):
         eff_s, linv_s, ints = synthetic_case(A_s, 3, NC_s, C=21, B=12, L=2000,
                                              seed=A_s, device=device)
@@ -518,9 +575,8 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
         case = dict(A=A_s, D=3, NC=NC_s, C=21)
         a32 = (on(eff_s, torch.float32), on(inv_s, torch.float32), *ints,
                on(lt, torch.float32))
-        for g in groups:
-            gkw = dict(kw, group=g) if linear else kw
-            o_np = kernel(*a32, **gkw).double().cpu().numpy()
+        for g in (None, T.MAX_ROWS):
+            o_np = kernel(*a32, group=g, **kw).double().cpu().numpy()
             what = f"{kid} synthetic A={A_s} group={g}"
             e = check_close(o_np, r_np, what, underflow_ok=linear)
             same_best(o_np, r_np, what)
@@ -528,9 +584,14 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
             case[f"max_abs_err_group_{g or 'picked'}"] = e
         synth.append(case)
 
-    # the main path's shape: against K1's checked output, then the times
+    # the main path's shape: against K1's checked output and the real case
+    # bit for bit, then the times
     args_f = args(full, torch.float32)
+    launch_f = plan(args_f)
+    assert launch_f["group"] > 1, launch_f
     out_f = kernel(*args_f, **kw)
+    assert torch.equal(out_f[real_idx], got_t), \
+        f"{kid}: the real case's rows at G={launch_f['group']} differ"
     got_f = out_f[:, :B].double().cpu().numpy()
     k1_f = ctx["k1_full"][:, :B].double().cpu().numpy()
     err_k1 = check_close(got_f, k1_f, f"{kid} vs K1 at the main path's shape",
@@ -544,18 +605,33 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
     assert np.array_equal(np.isneginf(o32), np.isneginf(t32)), \
         f"{kid}: -inf pattern differs from the float32 twin"
     fin = np.isfinite(t32)
-    bnd = bound(kid, len(full), dev_s, T.live_columns(args_f[0]),
+    bnd = bound(kid, len(full), dev_s, launch_f["n_live"],
                 kw["n_max_gaps"], sm_clock_hz(), ctx["n_sm"])
-    main = dict(C=len(full), B=B, ms=ms, plain_ms=plain_ms, **bnd,
-                share_of_bound=bnd["bound_ms"] / ms,
+    main = dict(C=len(full), B=B, launch=launch_f, ms=ms, plain_ms=plain_ms,
+                **bnd, share_of_bound=bnd["bound_ms"] / ms,
                 max_abs_diff_k1=err_k1,
                 n_reads_neginf=int(np.isneginf(got_f).sum()),
                 max_abs_diff_f32_twin_real_case=float(
                     np.abs(o32[fin] - t32[fin]).max(initial=0.0)),
                 kernel_scorings_per_s=len(full) * B / (ms / 1e3))
 
-    rescue = {}
-    if linear:
+    extra = {}
+    if not linear:
+        # K2 against itself at one row per block and K1 at K2's rows per
+        # block: what the rows per block buy, and what renormalising at
+        # every position costs
+        G = launch_f["group"]
+        extra["rows_vs_renorm"] = dict(
+            group=G, k2_ms=ms,
+            k2_one_row_ms=cuda_ms(lambda: kernel(*args_f, group=1, **kw), 2),
+            k1_same_group_ms=cuda_ms(
+                lambda: T.mapped_scores_log(*args_f, group=G, **kw), 2))
+        # the rescue's launch: the batch K3 flags on the draft, all reads
+        r_args, n_c, n_r = rescue_args
+        extra["rescue_shape"] = dict(
+            C=n_c, B=n_r, launch=plan(r_args),
+            ms=cuda_ms(lambda: kernel(*r_args, **kw), 3))
+    else:
         # the blocked candidate through score_candidates: K3 flags it, K2
         # rescores it, the draft's copy numbers stay with K3
         lin = TP.make_scorer(ctx["tpl"], ctx["pos"], ctx["codes"],
@@ -573,11 +649,13 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size):
                             full[i_blk])
         assert np.isclose(scores[1].likelihood, k2_sum, rtol=1e-12, atol=0), \
             (scores[1].likelihood, k2_sum)
-        rescue = dict(rescued=times.n_rescued, likelihood=scores[1].likelihood,
-                      k2_launches=launches["K2"], k3_launches=launches["K3"])
+        extra["rescue"] = dict(rescued=times.n_rescued,
+                               likelihood=scores[1].likelihood,
+                               k2_launches=launches["K2"],
+                               k3_launches=launches["K3"])
 
-    emit(f"{kid.lower()}_parity", t0, real=real_out, synthetic=synth,
-         main_shape=main, rescue=rescue)
+    emit(f"{kid.lower()}_parity", t0, ptxas=ptx, real=real_out,
+         synthetic=synth, main_shape=main, **extra)
     return dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
                 bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
 
@@ -823,8 +901,9 @@ def main():
     res = {}
     res["K1"], ctx = phase_k1_parity(device, params, ds, dbg, maps98)
     ctx["blocked"] = blocked_candidate(device, ctx)
-    for kid in ("K2", "K3"):
-        res[kid] = phase_parity(kid, device, params, dbg, ctx, ds.genome_size())
+    res["K2"] = phase_parity("K2", device, params, dbg, ctx, ds.genome_size(),
+                             rescue_shape(device, params, ds, dbg, maps98))
+    res["K3"] = phase_parity("K3", device, params, dbg, ctx, ds.genome_size())
     del ctx
     phase_refine(params, ds, dbg, maps98)
     spaces = phase_scorer_spaces(device, params, ds, dbg, maps98)

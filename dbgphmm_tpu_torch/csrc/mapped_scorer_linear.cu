@@ -10,31 +10,31 @@
 // one logf per read and position.  The Begin chain is a pair of linear
 // scalars scaled with the tables, as on the TPU.  Transitions come from
 // the eff rows: t = eff[numce] / sum_d eff[dence_d] (0 where the sum is 0),
-// init = eff[numce] * inv_total with the LINEAR 1/total.
+// init = eff[numce] * inv_total with the LINEAR 1/total.  Every step is the
+// one of ops/mapped_scorer.py:mapped_scores_linear_reference.
 //
 // What it cannot do: a read forced across copy-0 edges lives on only in
 // the Begin chain, which decays ~3.6 decades a base; float32 underflows
 // after ~11 bases and the read scores -inf.  score_candidates rescores such
 // candidates with K2 (the linear-to-log rescue).
 //
-// Design: K1's block design (see mapped_scorer.cu), with the same shared
-// memory layout (mapped_common.cuh).
-//   * Grid: one block per (group of G candidates, read b); block (AP, G),
-//     thread x owns slot x of candidate row y.
-//   * The group's eff rows in shared memory; the next position's streams
-//     prefetched with cp.async into a double-buffered shared row.
-//   * A slot's own M/I/D in registers; gathered values through per-row
-//     shared buffers; the block stops at its read's length and computes the
-//     end state once from the frozen tables.
+// Design: K1's (mapped_common.cuh), in linear space.  linear_scorer<RW>
+// runs G candidate rows of one read per block; a row is one warp where
+// A <= 32, its gathers through prevp / selfp / curp are __shfl_sync, and
+// its M maximum a warp reduction (Row<RW>: a shared row and a named barrier
+// of the row's own for 64 or 128 slots).  The block meets once per TP
+// read positions, where the next positions' streams, staged by 16-byte
+// cp.async into a double buffer, become visible to its rows.
 //
-// What bounds it on this card: as K1, latency, not bytes or arithmetic.  A
-// position is still a chain of ~7 block barriers (the M/I gather, the
-// deletion closure's 1 + n_max_gaps rounds, the per-position row max when
-// a row is more than one warp), and nothing of position t+1 starts before
-// position t ends.  What the design does about it: each step between
-// barriers is a few multiply-adds instead of K1's log1pf/expf pairs, the
-// stream loads of t+1 overlap step t, and many blocks stay resident per
-// SM to cover the barrier latency.
+// What bounds it on this card: as K1, latency, not bytes or arithmetic: a
+// position is a chain of 2 + n_max_gaps dependent exchanges and a row
+// maximum, each with a few multiply-adds between.  What the design does
+// about it: no block barrier inside the chain, so a row waits only on its
+// own exchanges and the SM's other rows fill the gaps; positions whose
+// slots use fewer degree columns (live_degree_columns, most often one) run
+// a step specialised on that count, with one gather per exchange and one
+// eff lookup for the denominator; each row's eff table is staged once per
+// block over the live compact edges only.
 //
 // Build (done by dbgphmm_tpu_torch/ops/_build.py at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -44,167 +44,172 @@
 
 namespace {
 
-__device__ __forceinline__ float gather_lin(const float* row, int idx) {
-    return idx >= 0 ? row[idx] : 0.f;
-}
+// Per-launch constants: the 13 linear probabilities and 1 / total.
+struct LinConsts {
+    float pMM, pIM, pDM, pMI, pII, pDI, pMD, pID, pDD;
+    float p_match, p_mismatch, p_random, invt;
+    int n_max_gaps;
+};
 
-// sum of the per-degree gathers
-__device__ __forceinline__ float gather_sum(const float* row, const int* idx,
-                                            int D) {
-    float out = gather_lin(row, idx[0]);
+// One slot's carried state: the scaled M/I/D tables, the row's Begin
+// chain (mb, ib) and its log scale offset with the Kahan term.
+struct LinState {
+    float m, ii, dd, mb, ib, off, offc;
+};
+
+// sum_d of value `which` at slots idx[d] (0 where idx < 0), in order
+template <int N, int RW>
+__device__ __forceinline__ float gather_sum(const Row<RW>& row, int which,
+                                            const int (&idx)[N]) {
+    float out = row.get(which, idx[0], 0.f);
 #pragma unroll
-    for (int d = 1; d < DMAX; ++d) {
-        if (d < D) out = out + gather_lin(row, idx[d]);
-    }
+    for (int d = 1; d < N; ++d) out = out + row.get(which, idx[d], 0.f);
     return out;
 }
 
-__global__ void __launch_bounds__(MAX_THREADS) mapped_scores_linear_kernel(
+// One read position of one candidate row, for positions whose slots use
+// only the first N degree columns (the stream's ncols); N = DMAX reads the
+// first D.  Columns past N hold no parent and no live out-edge, so they
+// add exact zeros in the twin.  Every thread of the row calls this.
+template <int N, int RW>
+__device__ __forceinline__ void linear_step(const int* sr, int a, bool real,
+                                            int A, int D, int NCL,
+                                            const float* tab,
+                                            const LinConsts& k, Row<RW>& row,
+                                            LinState& st) {
+    const int nseg = 3 + 3 * D;
+    const int x = sr[nseg * A];
+    int em = 9, nce = NCL, sp = -1;
+    int pp[N], cp[N];
+    float den = 0.f;
+#pragma unroll
+    for (int d = 0; d < N; ++d) pp[d] = cp[d] = -1;
+    if (real) {
+        const int* q = sr + a;
+        em = q[0];
+        nce = q[A];
+        sp = q[2 * A];
+#pragma unroll
+        for (int d = 0; d < N; ++d) {
+            if (N < DMAX || d < D) {
+                pp[d] = q[(3 + d) * A];
+                cp[d] = q[(3 + D + d) * A];
+                // ids at or past NCL (the sentinel among them) are 0, tab[NCL]
+                den += tab[min((unsigned)q[(3 + 2 * D + d) * A], (unsigned)NCL)];
+            }
+        }
+    }
+    const float num = tab[min((unsigned)nce, (unsigned)NCL)];
+    const float t_val = den > 0.f ? num / den : 0.f;
+    const float init_p = num * k.invt;
+    float p_emit = em == x ? k.p_match : k.p_mismatch;
+    p_emit = em < 4 ? p_emit : 0.f;
+
+    // fm / fi sources: combine the three tables first, gather once
+    row.put(k.pMM * st.m + k.pIM * st.ii + k.pDM * st.dd,
+            k.pMI * st.m + k.pII * st.ii + k.pDI * st.dd);
+    const float inner = gather_sum(row, 0, pp);
+    const float from_begin = init_p * (k.pMM * st.mb + k.pIM * st.ib);
+    const float m_new = p_emit * (t_val * inner + from_begin);
+    const float i_new = k.p_random * row.get(1, sp, 0.f);
+    // the Begin match state is 1 before position 0 and 0 after it
+    const float ib_new = k.p_random * (k.pMI * st.mb + k.pII * st.ib);
+
+    // deletion closure within the current slot set
+    row.put(k.pMD * m_new + k.pID * i_new, 0.f);
+    float d_new = t_val * gather_sum(row, 0, cp) + init_p * (k.pID * ib_new);
+    float fdt = d_new;
+    for (int r = 0; r < k.n_max_gaps; ++r) {
+        row.put(fdt, 0.f);
+        fdt = t_val * (k.pDD * gather_sum(row, 0, cp));
+        d_new = d_new + fdt;
+    }
+
+    // scale by the row's M maximum (1 where every M is 0)
+    float scale = row.reduce_max(real ? m_new : 0.f, 0);
+    scale = scale > 0.f ? scale : 1.f;
+    const float inv = 1.f / scale;
+    st.m = m_new * inv;
+    st.ii = i_new * inv;
+    st.dd = d_new * inv;
+    st.mb = 0.f;
+    st.ib = ib_new * inv;
+    const float y = logf(scale) - st.offc;
+    const float tt = st.off + y;
+    st.offc = (tt - st.off) - y;
+    st.off = tt;
+}
+
+template <int RW>
+__global__ void __launch_bounds__(32 * RW * MAX_ROWS, 4 / RW) linear_scorer(
     const float* __restrict__ eff,        // [C, NC]
     const float* __restrict__ inv_total,  // [C]  1 / total (0: empty)
     const int* __restrict__ lens,         // [B]
     Streams s,
+    const int* __restrict__ ncols,        // [L, B] live degree columns (1..D)
     const float* __restrict__ lt_lin,     // [13] linear probs (LinTrans order)
     float* __restrict__ out,              // [C, B]
-    int C, int NC, int B, int A, int D, int n_max_gaps) {
-    extern __shared__ float smem[];
-    const int AP = blockDim.x, G = blockDim.y;
-    const int a = threadIdx.x, g = threadIdx.y;
-    const int tid = g * AP + a, nthreads = AP * G;
-    const int NW = AP / 32, lane = a & 31, warp = a >> 5;
-    const int c0 = blockIdx.x * G;
-    const int b = blockIdx.y;
+    int C, int NC, int NCL, int B, int A, int D, int n_max_gaps, int TP) {
+    constexpr int AP = 32 * RW;
+    extern __shared__ __align__(16) float smem[];
+    const int G = blockDim.x / AP;
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int g = tid / AP, a = tid - g * AP;
+    const int c0 = blockIdx.x * G, b = blockIdx.y;
     const int c = min(c0 + g, C - 1);  // tail rows recompute the last candidate
-    const int nseg = 3 + 3 * D;
-    const int srow = stream_row_ints(AP, D);
-
-    float* s_eff = smem;                    // G * NC
-    float* s_P = s_eff + (size_t)G * NC;    // G * AP: pre_m
-    float* s_Q = s_P + G * AP;              // G * AP: pre_i
-    float* s_X0 = s_Q + G * AP;             // G * AP: pre_d / closure rounds
-    float* s_X1 = s_X0 + G * AP;            // G * AP: closure rounds
-    float* s_red = s_X1 + G * AP;           // G * NW
-    float* s_lt = s_red + G * NW;           // 16
-    int* s_str = reinterpret_cast<int*>(s_lt + 16);  // 2 * srow
+    const ScorerSmem L = scorer_smem(NCL, A, D, G, TP, RW);
+    const int srow = stream_row(A, D), nseg = 3 + 3 * D;
+    int* s_str = reinterpret_cast<int*>(smem + L.streams);
+    float* s_lt = smem + L.consts;
 
     const int len = lens[b];
-    for (int k = tid; k < G * NC; k += nthreads) {
-        int cc = min(c0 + k / NC, C - 1);
-        s_eff[k] = eff[(size_t)cc * NC + (k % NC)];
+    if (len > 0)
+        stage_streams(s_str, s, ncols, 0, min(TP, len), b, B, A, D, tid, nthreads);
+    // each row's eff table over the first NCL columns; entry NCL is 0 and
+    // serves every id at or past it (the sentinel among them)
+    for (int i = tid; i < G * (NCL + 1); i += nthreads) {
+        const int r = i / (NCL + 1), j = i - r * (NCL + 1);
+        smem[L.tab + r * L.tab_row + j] =
+            j < NCL ? eff[(size_t)min(c0 + r, C - 1) * NC + j] : 0.f;
     }
     if (tid < 13) s_lt[tid] = lt_lin[tid];
-    if (len > 0) issue_stream_copy(s_str, s, 0, b, B, A, D, AP, tid, nthreads);
-    __pipeline_wait_prior(0);
     __syncthreads();
 
-    const float pMM = s_lt[0], pIM = s_lt[1], pDM = s_lt[2];
-    const float pMI = s_lt[3], pII = s_lt[4], pDI = s_lt[5];
-    const float pMD = s_lt[6], pID = s_lt[7], pDD = s_lt[8];
-    const float p_match = s_lt[9], p_mismatch = s_lt[10];
-    const float p_random = s_lt[11], p_end = s_lt[12];
-    const float invt = inv_total[c];
-    const float* effg = s_eff + (size_t)g * NC;
-    float* P = s_P + g * AP;
-    float* Q = s_Q + g * AP;
-    float* X0 = s_X0 + g * AP;
-    float* X1 = s_X1 + g * AP;
-    float* red = s_red + g * NW;
+    LinConsts k;
+    k.pMM = s_lt[0], k.pIM = s_lt[1], k.pDM = s_lt[2];
+    k.pMI = s_lt[3], k.pII = s_lt[4], k.pDI = s_lt[5];
+    k.pMD = s_lt[6], k.pID = s_lt[7], k.pDD = s_lt[8];
+    k.p_match = s_lt[9], k.p_mismatch = s_lt[10], k.p_random = s_lt[11];
+    k.invt = inv_total[c];
+    k.n_max_gaps = n_max_gaps;
+    const float p_end = s_lt[12];
+    const float* tab = smem + L.tab + g * L.tab_row;
     const bool real = a < A;
 
-    float m = 0.f, ii = 0.f, dd = 0.f;  // this slot's tables
-    float mb = 1.f, ib = 0.f;           // Begin chain (linear, scaled)
-    float off = 0.f, offc = 0.f;        // log scale offset + Kahan term
-
-    for (int t = 0; t < len; ++t) {
-        const int* row = s_str + (t & 1) * srow;
-        // fm / fi sources: combine the three tables first, gather once
-        P[a] = pMM * m + pIM * ii + pDM * dd;
-        Q[a] = pMI * m + pII * ii + pDI * dd;
-        __syncthreads();
-        if (t + 1 < len)
-            issue_stream_copy(s_str + ((t + 1) & 1) * srow, s, t + 1, b, B, A,
-                              D, AP, tid, nthreads);
-
-        const int x = row[nseg * AP];
-        const Slot sl = read_slot(row, effg, a, real, AP, D, NC);
-        const float num = effg[sl.nce];
-        const float t_val = sl.den > 0.f ? num / sl.den : 0.f;
-        const float init_p = num * invt;
-        float p_emit = sl.em == x ? p_match : p_mismatch;
-        p_emit = sl.em < 4 ? p_emit : 0.f;
-
-        const float inner = gather_sum(P, sl.pp, D);
-        const float from_begin = init_p * (pMM * mb + pIM * ib);
-        float m_new = p_emit * (t_val * inner + from_begin);
-        float i_new = p_random * gather_lin(Q, sl.sp);
-        const float mb_new = 0.f;
-        float ib_new = p_random * (pMI * mb + pII * ib);
-
-        // deletion closure within the current slot set
-        X0[a] = pMD * m_new + pID * i_new;
-        __syncthreads();
-        const float acc = gather_sum(X0, sl.cp, D);
-        float d_new = t_val * acc + init_p * (pMD * mb_new + pID * ib_new);
-        float fdt = d_new;
-        for (int r = 0; r < n_max_gaps; ++r) {
-            float* buf = (r & 1) ? X0 : X1;
-            buf[a] = fdt;
-            __syncthreads();
-            fdt = t_val * (pDD * gather_sum(buf, sl.cp, D));
-            d_new = d_new + fdt;
-        }
-
-        // scale by the row's M maximum (1 where every M is 0)
-        float scale = row_max(real ? m_new : 0.f, red, NW, lane, warp);
-        scale = scale > 0.f ? scale : 1.f;
-        const float inv = 1.f / scale;
-        m = m_new * inv;
-        ii = i_new * inv;
-        dd = d_new * inv;
-        mb = mb_new;
-        ib = ib_new * inv;
-        const float y = logf(scale) - offc;
-        const float tt = off + y;
-        offc = (tt - off) - y;
-        off = tt;
-        __pipeline_wait_prior(0);  // next position's streams (made visible
-                                   // to the block by the next barrier)
-    }
+    Row<RW> row = row_at<RW>(smem, L, g, a);
+    LinState st{0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f};
+    walk_read(s_str, s, ncols, len, TP, srow, nseg, b, B, A, D,
+              [&](auto n, const int* sr, int) {
+                  linear_step<decltype(n)::value, RW>(sr, a, real, A, D, NCL,
+                                                      tab, k, row, st);
+              });
 
     // end state from the frozen tables: P = p_end * sum(M + I + D) * e^off
-    __syncthreads();  // red[] may still be read by the last row max
-    const float e = p_end * row_sum(real ? m + ii + dd : 0.f, red, NW, lane,
-                                    warp);
+    const float e = p_end * row.reduce_sum(real ? st.m + st.ii + st.dd : 0.f);
     if (a == 0 && c0 + g < C)
-        out[(size_t)(c0 + g) * B + b] = e > 0.f ? logf(e) + off : -INFINITY;
+        out[(size_t)(c0 + g) * B + b] = e > 0.f ? logf(e) + st.off : -INFINITY;
+}
+
+ScorerKernel linear_scorer_for(int A) {
+    if (A <= 32) return linear_scorer<1>;
+    if (A <= 64) return linear_scorer<2>;
+    return linear_scorer<4>;
 }
 
 }  // namespace
 
-extern "C" {
+DBG_SCORER_ENTRIES(dbg_mapped_scores_linear, linear_scorer_for)
 
-// Dynamic shared memory (bytes) of one block.
-size_t dbg_mapped_scores_linear_smem(int NC, int A, int D, int G) {
-    return mapped_smem_bytes(NC, A, D, G);
-}
-
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-int dbg_mapped_scores_linear(const float* eff, const float* inv_total,
-                             const int* lens, const int* codes,
-                             const int* emis, const int* numce,
-                             const int* selfp, const int* prevp,
-                             const int* curp, const int* dence,
-                             const float* lt_lin, float* out, int C, int NC,
-                             int L, int B, int A, int D, int n_max_gaps,
-                             int G, void* stream) {
-    (void)L;
-    Streams s{codes, emis, numce, selfp, prevp, curp, dence};
-    return launch_mapped(mapped_scores_linear_kernel, eff, inv_total, lens, s,
-                         lt_lin, out, C, NC, B, A, D, n_max_gaps, G, stream);
-}
-
-const char* dbg_cuda_error_string(int err) {
+extern "C" const char* dbg_cuda_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
-
-}  // extern "C"

@@ -10,7 +10,8 @@ ctypes; nothing is built when a module is imported.
   travel as ``c_void_p``.
 * ``libmapped_scorer_linear_<hash>.so`` — the K3 scorer,
   ``csrc/mapped_scorer_linear.cu``, built the same way.  Both CUDA sources
-  include ``csrc/mapped_common.cuh``.
+  include ``csrc/mapped_common.cuh``, and every scorer has the same C
+  entry and an occupancy entry beside it (``_scorer_entries``).
 * ``lib<name>_<hash>.so`` — the host kernels in ``csrc/host/``, compiled
   with ``g++``: ``positions.cpp`` (slot positions, ``ops/sparse.py``),
   ``flow.cpp`` (the min-cost flow solver, ``flow/native.py``),
@@ -117,26 +118,32 @@ def _cuda_lib(src: Path, stem: str, entries) -> ctypes.CDLL:
     return lib
 
 
+def _scorer_entries(*names) -> dict:
+    """ctypes signatures of scorer C entries (csrc/mapped_common.cuh,
+    DBG_SCORER_ENTRIES) and of their occupancy entries."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    for name in names:
+        out[name] = (i32, [vp] * 13 + [i32] * 10 + [vp])
+        out[name + "_blocks_per_sm"] = (i32, [i32] * 5)
+    return out
+
+
 def mapped_scorer_lib() -> ctypes.CDLL:
     """The compiled K1 and K2 scorers (built on first call)."""
     if "scorer" not in _LIBS:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        _LIBS["scorer"] = _cuda_lib(SCORER_SRC, "libmapped_scorer", {
-            "dbg_mapped_scores_log": (i32, [vp] * 13 + [i32] * 10 + [vp]),
-            "dbg_mapped_scores_log_single": (i32, [vp] * 13 + [i32] * 9 + [vp]),
-            "dbg_mapped_scores_log_blocks_per_sm": (i32, [i32] * 6),
-        })
+        _LIBS["scorer"] = _cuda_lib(
+            SCORER_SRC, "libmapped_scorer",
+            _scorer_entries("dbg_mapped_scores_log",
+                            "dbg_mapped_scores_log_single"))
     return _LIBS["scorer"]
 
 
 def mapped_scorer_linear_lib() -> ctypes.CDLL:
     """The compiled K3 scorer (built on first call)."""
     if "linear" not in _LIBS:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        _LIBS["linear"] = _cuda_lib(LINEAR_SRC, "libmapped_scorer_linear", {
-            "dbg_mapped_scores_linear": (i32, [vp] * 12 + [i32] * 8 + [vp]),
-            "dbg_mapped_scores_linear_smem": (ctypes.c_size_t, [i32] * 4),
-        })
+        _LIBS["linear"] = _cuda_lib(LINEAR_SRC, "libmapped_scorer_linear",
+                                    _scorer_entries("dbg_mapped_scores_linear"))
     return _LIBS["linear"]
 
 

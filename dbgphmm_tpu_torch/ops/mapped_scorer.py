@@ -44,9 +44,10 @@ from .forward import default_dtype
 
 NEGF = -1e30  # finite log(0) sentinel of the kernel (and of the TPU kernel)
 RENORM_EVERY = 2  # renormalise every 2 positions (the TPU production value)
-SMEM_OPTIN = 232448  # shared memory one block may use on Hopper (227 KB)
-MAX_GROUP = 8  # candidates per block, at most
-STAGE_POSITIONS = (8, 4, 2, 1)  # K1 / K2: read positions staged per copy
+MAX_ROWS = 8  # candidate rows per block, at most (MAX_ROWS in the kernels)
+# read positions staged per copy: the block meets once per copy, so never
+# one (a block barrier at every position)
+STAGE_POSITIONS = (8, 4, 2)
 
 
 class MappedStreams(NamedTuple):
@@ -184,7 +185,7 @@ def _eff_matrix(streams: MappedStreams, cands) -> Tuple[np.ndarray, np.ndarray]:
 
 def live_columns(eff: torch.Tensor) -> int:
     """[C, NC] eff table -> its columns up to the last one that is non-zero
-    for some candidate (at least 1).  K1 and K2 stage only these, and read
+    for some candidate (at least 1).  The kernels stage only these, and read
     every compact id past them as a copy number of 0."""
     nz = eff.ne(0).any(dim=0).nonzero()
     return int(nz[-1]) + 1 if nz.numel() else 1
@@ -485,60 +486,77 @@ def _check_inputs(where, eff, inv, lens, codes, emis, numce, selfp, prevp,
         raise ValueError(f"{where}: unsupported degree D={D} or width A={A}")
 
 
-def _pick_group(smem_fn, C: int, B: int, A: int, D: int, NC: int,
-                device: torch.device) -> int:
-    """K3's candidates per block: as many as threads (<= 1024) and shared
-    memory allow, up to MAX_GROUP, but no more than keeps ~4 blocks per SM.
-    ``smem_fn(NC, A, D, G)`` is the kernel's shared memory per block."""
-    ap = max(32, -(-A // 32) * 32)
-    G = min(MAX_GROUP, 1024 // ap)
-    while G > 1 and smem_fn(NC, A, D, G) > SMEM_OPTIN:
-        G //= 2
-    if smem_fn(NC, A, D, G) > SMEM_OPTIN:
-        raise ValueError(f"eff table of {NC} compact edges does not fit in "
-                         "shared memory")
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    while G > 1 and -(-C // G) * B < 4 * n_sm:
-        G //= 2
-    return G
+# The kernels' C entries, one per kernel, each with its occupancy entry
+# <entry>_blocks_per_sm (csrc/mapped_common.cuh, DBG_SCORER_ENTRIES).
+ENTRIES = {"K1": (_build.mapped_scorer_lib, "dbg_mapped_scores_log"),
+           "K2": (_build.mapped_scorer_lib, "dbg_mapped_scores_log_single"),
+           "K3": (_build.mapped_scorer_linear_lib, "dbg_mapped_scores_linear")}
 
 
-def _pick_log_launch(lib, C: int, B: int, A: int, D: int, n_live: int,
-                     renorm: int, device: torch.device,
-                     group: Optional[int] = None) -> Tuple[int, int]:
-    """(candidate rows per block G, positions staged per copy TP) of a K1
-    (renorm 2) or K2 (renorm 1, G = 1) launch.
+class Launch(NamedTuple):
+    """One launch of a scorer kernel, as :func:`launch_plan` derives it."""
+    group: int  # candidate rows per block
+    stage: int  # read positions staged per copy
+    blocks_per_sm: int  # resident blocks per SM the runtime reports
+    n_live: int  # eff columns staged (:func:`live_columns`)
 
-    For each G (or the forced ``group``) the TP with the most resident
-    blocks per SM, as the CUDA runtime reports them for this kernel's
-    registers and shared memory; then the G with the most rows resident on
-    the card (blocks past the grid do not count), ties going to more busy
-    SMs, a deeper stage and then more rows per block."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    groups = [group] if group else ([1] if renorm == 1 else [1, 2, 4, 8])
+
+def _pick_launch(blocks_per_sm, C: int, B: int, n_sm: int,
+                 group: Optional[int] = None) -> Tuple[int, int, int]:
+    """(rows per block G, positions staged per copy TP, resident blocks per
+    SM) of a launch over C candidates and B reads.
+
+    ``blocks_per_sm(G, TP)`` is the kernel's occupancy (0: it does not
+    fit).  For each G in 1, 2, 4, ..., MAX_ROWS (or the forced ``group``)
+    and each TP: the most candidate rows resident on the card at once
+    (where C < G, only C rows of a block count), then the most busy SMs,
+    then the deeper stage, then the fewer rows per block."""
+    groups = [group] if group else [1 << i for i in range(MAX_ROWS.bit_length())]
     best = None
     for G in groups:
         n_blocks = -(-C // G) * B
         for TP in STAGE_POSITIONS:
-            per_sm = lib.dbg_mapped_scores_log_blocks_per_sm(n_live, A, D, G,
-                                                             TP, renorm)
+            per_sm = blocks_per_sm(G, TP)
             if per_sm <= 0:
                 continue
-            key = (min(per_sm * n_sm, n_blocks) * G, min(n_blocks, n_sm), TP, G)
+            rows = min(per_sm * n_sm, n_blocks) * min(G, C)
+            key = (rows, min(n_blocks, n_sm), TP, -G)
             if best is None or key > best[0]:
-                best = (key, G, TP)
+                best = (key, G, TP, per_sm)
     if best is None:
-        raise ValueError(f"no launch of the log scorer fits an SM (A={A} D={D} "
-                         f"n_live={n_live} group={group})")
-    return best[1], best[2]
+        raise ValueError(f"no launch of the scorer fits an SM (group={group})")
+    return best[1:]
+
+
+def launch_plan(kid: str, eff: torch.Tensor, prevp: torch.Tensor,
+                group: Optional[int] = None) -> Launch:
+    """The launch of kernel ``kid`` ("K1", "K2", "K3") for this eff table
+    and these streams, as the wrapper makes it."""
+    lib_of, entry = ENTRIES[kid]
+    C, NC = eff.shape
+    L, D, B, A = prevp.shape
+    ncl = live_columns(eff)
+    if ncl >= NC:
+        raise ValueError(f"{kid}: eff's sentinel column {NC - 1} must be 0")
+    if A > 128 or A % 4:
+        raise ValueError(f"{kid}: slot width A={A} must be a multiple of 4 "
+                         "and at most 128")
+    per_sm = getattr(lib_of(), entry + "_blocks_per_sm")
+    n_sm = torch.cuda.get_device_properties(eff.device).multi_processor_count
+    try:
+        G, TP, n = _pick_launch(lambda g, tp: per_sm(ncl, A, D, g, tp), C, B,
+                                n_sm, group)
+    except ValueError as e:
+        raise ValueError(f"{kid}: {e} (A={A} D={D} n_live={ncl})") from None
+    return Launch(G, TP, n, ncl)
 
 
 def live_degree_columns(prevp: torch.Tensor, curp: torch.Tensor,
                         dence: torch.Tensor, n_live: int) -> torch.Tensor:
     """[L, B] int32: per read position, how many leading degree columns any
     slot uses (1..D): a parent at the previous or the current position, or
-    an out-edge id below ``n_live``.  K1 and K2 run a position with only as
-    many columns as this says; the rest are log 0 there."""
+    an out-edge id below ``n_live``.  The kernels run a position with only
+    as many columns as this says; the rest hold nothing there."""
     L, D, B, A = prevp.shape
     if D == 1:
         return torch.ones((L, B), dtype=torch.int32, device=prevp.device)
@@ -549,110 +567,79 @@ def live_degree_columns(prevp: torch.Tensor, curp: torch.Tensor,
     return (live.to(torch.int32) * col).amax(dim=1).clamp_(min=1).contiguous()
 
 
-def _launch_log(what, fn, renorm: int, args, n_max_gaps: int,
-                group: Optional[int]) -> torch.Tensor:
-    """Launch K1 (renorm 2) or K2 (renorm 1) on the current stream; raise
-    with the CUDA error string if the launch is refused.  The eff columns
-    to stage (:func:`live_columns`) and the live degree columns per
-    position (:func:`live_degree_columns`) are derived here from the
-    inputs, so they cannot disagree with them."""
-    lib = _build.mapped_scorer_lib()
-    eff, prevp = args[0], args[7]
-    C, NC = eff.shape
-    L, D, B, A = prevp.shape
-    ncl = live_columns(eff)
-    if ncl >= NC:
-        raise ValueError(f"{what}: eff's sentinel column {NC - 1} must be 0")
-    if A > 128 or A % 4:
-        raise ValueError(f"{what}: slot width A={A} must be a multiple of 4 "
-                         "and at most 128")
-    ncols = live_degree_columns(prevp, args[8], args[9], ncl)
+def _run(kid: str, wrapper, twin, args, n_max_gaps: int,
+         group: Optional[int]) -> torch.Tensor:
+    """Kernel ``kid`` on ``args``: its twin for CPU tensors; for CUDA
+    tensors a launch on the current stream (counted on ``wrapper``), or an
+    error with the CUDA error string if the launch is refused.  The eff
+    columns to stage, the live degree columns per position and the launch
+    shape are derived here from the inputs, so they cannot disagree with
+    them."""
+    if args[0].device.type == "cpu":
+        return twin(*args, n_max_gaps=n_max_gaps)
+    _check_inputs(wrapper.__name__, *args)
+    eff, prevp, curp, dence = args[0], args[7], args[8], args[9]
     for t in args[2:10]:
         if t.data_ptr() % 16:
-            raise ValueError(f"{what}: streams must be 16-byte aligned")
-    G, TP = _pick_log_launch(lib, C, B, A, D, ncl, renorm, eff.device, group)
+            raise ValueError(f"{kid}: streams must be 16-byte aligned")
+    plan = launch_plan(kid, eff, prevp, group)
+    ncols = live_degree_columns(prevp, curp, dence, plan.n_live)
+    lib_of, entry = ENTRIES[kid]
+    lib = lib_of()
+    C, NC = eff.shape
+    L, D, B, A = prevp.shape
     out = torch.empty((C, B), dtype=torch.float32, device=eff.device)
     with torch.cuda.device(eff.device):
         stream = torch.cuda.current_stream(eff.device).cuda_stream
         ptrs = [ctypes.c_void_p(t.data_ptr())
                 for t in (*args[:10], ncols, args[10], out)]
-        dims = [C, NC, ncl, L, B, A, D, n_max_gaps]
-        rc = fn(*ptrs, *dims, *([G] if renorm == 2 else []), TP,
-                ctypes.c_void_p(stream))
+        rc = getattr(lib, entry)(*ptrs, C, NC, plan.n_live, L, B, A, D,
+                                 n_max_gaps, plan.group, plan.stage,
+                                 ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
-            f"{what} launch failed: {lib.dbg_cuda_error_string(rc).decode()} "
-            f"(C={C} B={B} L={L} A={A} D={D} NC={NC} n_live={ncl} G={G} "
-            f"TP={TP})")
-    return out
-
-
-def _launch(what, lib, fn, args, n_max_gaps: int, *extra) -> torch.Tensor:
-    """Launch ``fn`` (a kernel's C entry point) on the current stream; raise
-    with the CUDA error string if the launch is refused."""
-    eff, prevp = args[0], args[7]
-    C, NC = eff.shape
-    L, D, B, A = prevp.shape
-    out = torch.empty((C, B), dtype=torch.float32, device=eff.device)
-    with torch.cuda.device(eff.device):
-        stream = torch.cuda.current_stream(eff.device).cuda_stream
-        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*args, out)]
-        rc = fn(*ptrs, C, NC, L, B, A, D, n_max_gaps, *extra,
-                ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(
-            f"{what} launch failed: {lib.dbg_cuda_error_string(rc).decode()} "
-            f"(C={C} B={B} L={L} A={A} D={D} NC={NC} {extra})")
+            f"{kid} launch failed: {lib.dbg_cuda_error_string(rc).decode()} "
+            f"(C={C} B={B} L={L} A={A} D={D} NC={NC} {plan})")
+    wrapper.launches += 1
     return out
 
 
 def mapped_scores_log(eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
                       dence, lt_lin, n_max_gaps: int = 4,
                       group: Optional[int] = None) -> torch.Tensor:
-    """K1: [C, B] per-read log P(read | candidate), rows in candidate order.
+    """K1: [C, B] per-read log P(read | candidate), rows in candidate order,
+    renormalised every 2 positions.
 
     CUDA tensors (eff/linv/lt_lin float32, streams and lens int32, all
     contiguous on one device; the slot width A a multiple of 4, at most
     128) launch the K1 kernel on the current stream; CPU tensors run
     :func:`mapped_scores_log_reference`.  ``group`` forces the number of
-    candidates per block.  Column NC - 1 of eff (the sentinel) must be 0;
-    the kernel stages each candidate's table only up to its last column
-    that is non-zero for some candidate."""
-    args = (eff, linv, lens, codes, emis, numce, selfp, prevp, curp, dence,
-            lt_lin)
-    if eff.device.type == "cpu":
-        return mapped_scores_log_reference(*args, n_max_gaps=n_max_gaps)
-    _check_inputs("mapped_scores_log", *args)
-    lib = _build.mapped_scorer_lib()
-    out = _launch_log("K1", lib.dbg_mapped_scores_log, 2, args, n_max_gaps,
-                      group)
-    mapped_scores_log.launches += 1
-    return out
+    candidates per block; the result is the same for every group.  Column
+    NC - 1 of eff (the sentinel) must be 0; the kernel stages each
+    candidate's table only up to its last column that is non-zero for some
+    candidate."""
+    return _run("K1", mapped_scores_log, mapped_scores_log_reference,
+                (eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
+                 dence, lt_lin), n_max_gaps, group)
 
 
 mapped_scores_log.launches = 0
 
 
 def mapped_scores_log_single(eff, linv, lens, codes, emis, numce, selfp,
-                             prevp, curp, dence, lt_lin, n_max_gaps: int = 4
-                             ) -> torch.Tensor:
-    """K2: the same quantity as :func:`mapped_scores_log`, one candidate
-    per block, renormalised at every position.
+                             prevp, curp, dence, lt_lin, n_max_gaps: int = 4,
+                             group: Optional[int] = None) -> torch.Tensor:
+    """K2: the same quantity as :func:`mapped_scores_log`, renormalised at
+    every position.
 
     CUDA tensors launch the K2 kernel (``dbg_mapped_scores_log_single`` of
-    ``csrc/mapped_scorer.cu``, K1's body at G = 1); CPU tensors run
-    :func:`mapped_scores_log_single_reference`.  Inputs as in
+    ``csrc/mapped_scorer.cu``); CPU tensors run
+    :func:`mapped_scores_log_single_reference`.  Inputs and ``group`` as in
     :func:`mapped_scores_log`."""
-    args = (eff, linv, lens, codes, emis, numce, selfp, prevp, curp, dence,
-            lt_lin)
-    if eff.device.type == "cpu":
-        return mapped_scores_log_single_reference(*args, n_max_gaps=n_max_gaps)
-    _check_inputs("mapped_scores_log_single", *args)
-    lib = _build.mapped_scorer_lib()
-    out = _launch_log("K2", lib.dbg_mapped_scores_log_single, 1, args,
-                      n_max_gaps, 1)
-    mapped_scores_log_single.launches += 1
-    return out
+    return _run("K2", mapped_scores_log_single,
+                mapped_scores_log_single_reference,
+                (eff, linv, lens, codes, emis, numce, selfp, prevp, curp,
+                 dence, lt_lin), n_max_gaps, group)
 
 
 mapped_scores_log_single.launches = 0
@@ -666,22 +653,11 @@ def mapped_scores_linear(eff, inv_total, lens, codes, emis, numce, selfp,
     edges).  ``inv_total`` is the linear 1/total.
 
     CUDA tensors launch the K3 kernel (``csrc/mapped_scorer_linear.cu``);
-    CPU tensors run :func:`mapped_scores_linear_reference`.  ``group``
-    forces the number of candidates per block."""
-    args = (eff, inv_total, lens, codes, emis, numce, selfp, prevp, curp,
-            dence, lt_lin)
-    if eff.device.type == "cpu":
-        return mapped_scores_linear_reference(*args, n_max_gaps=n_max_gaps)
-    _check_inputs("mapped_scores_linear", *args)
-    lib = _build.mapped_scorer_linear_lib()
-    C, NC = eff.shape
-    L, D, B, A = prevp.shape
-    G = group or _pick_group(lib.dbg_mapped_scores_linear_smem, C, B, A, D,
-                             NC, eff.device)
-    out = _launch("K3", lib, lib.dbg_mapped_scores_linear, args, n_max_gaps,
-                  G)
-    mapped_scores_linear.launches += 1
-    return out
+    CPU tensors run :func:`mapped_scores_linear_reference`.  Other inputs
+    and ``group`` as in :func:`mapped_scores_log`."""
+    return _run("K3", mapped_scores_linear, mapped_scores_linear_reference,
+                (eff, inv_total, lens, codes, emis, numce, selfp, prevp, curp,
+                 dence, lt_lin), n_max_gaps, group)
 
 
 mapped_scores_linear.launches = 0

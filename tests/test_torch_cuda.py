@@ -24,6 +24,7 @@ from dbgphmm_tpu_torch.ops.forward import pad_reads
 from dbgphmm_tpu_torch.ops.sparse import pad_mappings, precompute_positions
 
 pytestmark = pytest.mark.cuda
+GROUPS = tuple(1 << i for i in range(T.MAX_ROWS.bit_length()))  # 1 .. 8
 
 
 @pytest.fixture
@@ -84,20 +85,18 @@ def test_kernel_matches_twin(cuda, A, D, NC):
     fin = np.isfinite(ref)
     assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
     np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
-    for g in (1, 2, 4, 8):
+    for g in GROUPS:
         np.testing.assert_array_equal(
             run_k1(s, cuda, torch.float32, group=g), got)
 
 
-@pytest.mark.parametrize("A,D,NC", [(16, 4, 128), (32, 4, 256), (64, 3, 384),
-                                    (128, 3, 256)])
-def test_kernel_matches_twin_sparse_columns(cuda, A, D, NC):
-    """K1 and K2 where, as on a de Bruijn graph, most positions have one
-    parent per slot and one out-edge per source node (the kernels' shortcut
-    that skips negligible log-sum-exp terms), with a few branch positions;
-    eff columns past n_live are 0 and the wrappers stage only n_live.
-    Tolerances as in test_kernel_matches_twin; the forced groups agree bit
-    for bit."""
+def sparse_case(A, D, NC):
+    """21 candidates where, as on a de Bruijn graph, most positions have
+    one parent per slot and one out-edge per source node (the kernels'
+    per-position specialisation on live_degree_columns, and K1 / K2's
+    shortcut that skips negligible log-sum-exp terms), with a few branch
+    positions; eff columns past n_live = NC / 2 are 0 and the wrappers
+    stage only n_live."""
     s = synthetic_streams(A, D, NC, C=21, B=12, L=300, seed=A + 3)
     rng = np.random.default_rng(A)
     branch = rng.random((300, 1, 12, A)) < 0.05
@@ -109,7 +108,19 @@ def test_kernel_matches_twin_sparse_columns(cuda, A, D, NC):
     s["numce"] %= n_live
     s["dence"] = np.where(s["dence"] == NC - 1, NC - 1, s["dence"] % n_live)
     s["eff"][:, n_live:] = 0.0
-    assert T.live_columns(torch.as_tensor(s["eff"], device=cuda)) == n_live
+    return s
+
+
+@pytest.mark.parametrize("A,D,NC", [(16, 4, 128), (32, 4, 256), (64, 3, 384),
+                                    (128, 3, 256)])
+def test_kernel_matches_twin_sparse_columns(cuda, A, D, NC):
+    """K1, K2 and K3 on the sparse-column case.  K1 and K2: tolerances as
+    in test_kernel_matches_twin.  K3: the float32 twin's -inf pattern and
+    values to 1e-3, the float64 twin to 1e-5 |ref| + 0.05 nats where the
+    kernel is finite.  Every forced group agrees bit for bit: K1 at 1 and
+    8 rows per block, K2 at 1, 2, 4 and 8, K3 at 1 and 8."""
+    s = sparse_case(A, D, NC)
+    assert T.live_columns(torch.as_tensor(s["eff"], device=cuda)) == NC // 2
     for fn, twin in ((T.mapped_scores_log, T.mapped_scores_log_reference),
                      (T.mapped_scores_log_single,
                       T.mapped_scores_log_single_reference)):
@@ -122,19 +133,37 @@ def test_kernel_matches_twin_sparse_columns(cuda, A, D, NC):
         assert (np.abs(got[fin] - ref[fin])
                 <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
         np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
-    for g in (1, 8):
-        np.testing.assert_array_equal(
-            run_k1(s, cuda, torch.float32, group=g),
-            run_k1(s, cuda, torch.float32))
+    lin = dict(fn=T.mapped_scores_linear, inv="inv_total")
+    got = run_k1(s, cuda, torch.float32, **lin)
+    ref = run_k1(s, cuda, torch.float64, fn=T.mapped_scores_linear_reference,
+                 inv="inv_total")
+    ref32 = run_k1(s, cuda, torch.float32, fn=T.mapped_scores_linear_reference,
+                   inv="inv_total")
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref32))
+    assert np.isneginf(got[np.isneginf(ref)]).all()
+    fin = np.isfinite(got)
+    assert fin.any()
+    assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
+    np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
+    for fn, groups in ((T.mapped_scores_log, (1, T.MAX_ROWS)),
+                       (T.mapped_scores_log_single, GROUPS),
+                       (T.mapped_scores_linear, (1, T.MAX_ROWS))):
+        inv = "inv_total" if fn is T.mapped_scores_linear else "linv"
+        picked = run_k1(s, cuda, torch.float32, fn=fn, inv=inv)
+        for g in groups:
+            np.testing.assert_array_equal(
+                run_k1(s, cuda, torch.float32, fn=fn, inv=inv, group=g),
+                picked)
 
 
 def test_log_kernels_refuse_a_nonzero_sentinel_column(cuda):
-    """K1 and K2 stage eff up to its last non-zero column; the sentinel
+    """K1, K2 and K3 stage eff up to its last non-zero column; the sentinel
     column NC - 1 (the id of an empty slot or a missing out-edge) must be
     0, and a table where it is not is refused before any launch."""
     s = synthetic_streams(32, 3, 256, C=5, B=4, L=50, seed=7)
     s["eff"][2, 255] = 1.0
-    for fn in (T.mapped_scores_log, T.mapped_scores_log_single):
+    for fn in (T.mapped_scores_log, T.mapped_scores_log_single,
+               T.mapped_scores_linear):
         launches = fn.launches
         with pytest.raises(ValueError, match="sentinel"):
             run_k1(s, cuda, torch.float32, fn=fn)
@@ -156,7 +185,8 @@ def blocked_case(A, D, NC, seed):
                                     (128, 3, 256)])
 def test_k2_matches_twin(cuda, A, D, NC):
     """K2 against its float64 twin per read (1e-5 |ref| + 0.05 nats), -inf
-    exactly where the twin has it, the float32 twin to 1e-3."""
+    exactly where the twin has it, the float32 twin to 1e-3; 1, 2, 4 and 8
+    candidates per block agree bit for bit (a partial last group)."""
     s = blocked_case(A, D, NC, seed=A + 1)
     fn, twin = T.mapped_scores_log_single, T.mapped_scores_log_single_reference
     launches = fn.launches
@@ -169,6 +199,9 @@ def test_k2_matches_twin(cuda, A, D, NC):
     fin = np.isfinite(ref)
     assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
     np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
+    for g in GROUPS:
+        np.testing.assert_array_equal(run_k1(s, cuda, torch.float32, fn=fn,
+                                             group=g), got)
 
 
 @pytest.mark.parametrize("A,D,NC", [(16, 2, 128), (32, 3, 256), (64, 3, 384),
@@ -193,7 +226,7 @@ def test_k3_matches_twin(cuda, A, D, NC):
     fin = np.isfinite(got)
     assert (np.abs(got[fin] - ref[fin]) <= 1e-5 * np.abs(ref[fin]) + 0.05).all()
     np.testing.assert_allclose(got[fin], ref32[fin], rtol=0, atol=1e-3)
-    for g in (1, 8):
+    for g in (1, T.MAX_ROWS):
         np.testing.assert_array_equal(
             run_k1(s, cuda, torch.float32, fn=fn, inv="inv_total", group=g),
             got)

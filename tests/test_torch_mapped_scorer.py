@@ -231,3 +231,68 @@ def test_live_columns_and_live_degree_columns(setup):
             ref = np.where(used, d + 1, ref)
         np.testing.assert_array_equal(got, ref)
         assert 1 < got.max() <= D
+
+
+def _h100_blocks_per_sm(n_live, A, D, regs):
+    """A stand-in for a kernel's ``*_blocks_per_sm`` C entry on an H100
+    (132 SMs; per SM 233,472 bytes of shared memory with 1 KB reserved per
+    block, 65,536 registers, 64 warps, 32 blocks), with the kernels' shared
+    memory layout (csrc/mapped_common.cuh, scorer_smem) and ``regs``
+    registers a thread."""
+    rw = 1 if A <= 32 else (2 if A <= 64 else 4)
+
+    def blocks(G, TP):
+        threads = 32 * rw * G
+        srow = ((3 + 3 * D) * A + 2 + 3) & ~3
+        floats = G * ((n_live + 1 + 3) & ~3) + 32 + 2 * TP * srow
+        if rw > 1:
+            floats += G * 4 * 32 * rw + ((G * 3 * rw + 3) & ~3)
+        return min(32, 233472 // (4 * floats + 1024),
+                   65536 // (regs * threads), 64 // (threads // 32))
+    return blocks
+
+
+def _pick_before(blocks_per_sm, C, B, n_sm):
+    """K1's picker as it was before K2 and K3 shared it: the most rows
+    resident (a block's tail rows counted), then busy SMs, deeper stage,
+    more rows per block; 8, 4, 2 or 1 positions per copy."""
+    best = None
+    for G in (1, 2, 4, 8):
+        n_blocks = -(-C // G) * B
+        for TP in (8, 4, 2, 1):
+            per_sm = blocks_per_sm(G, TP)
+            if per_sm > 0:
+                key = (min(per_sm * n_sm, n_blocks) * G, min(n_blocks, n_sm),
+                       TP, G)
+                best = max(best or (key, G, TP), (key, G, TP))
+    return best[1:]
+
+
+@pytest.mark.parametrize("A", [16, 32, 64, 128])
+def test_pick_launch_without_a_card(A):
+    """The one launch picker of K1, K2 and K3, with a stand-in occupancy:
+    at the main path's shape (2,982 candidates x 16 reads, D=4, 1,242 live
+    columns) and the rescue's (127 x 104) it takes several rows per block;
+    with 1 or 2 candidates one row per block (one per candidate); never one
+    staged position per copy; and K1's choice is the one its own picker
+    made before, at every shape with at least MAX_ROWS candidates."""
+    n_sm = 132
+    for regs in (64, 40):  # K1 / K2 at the launch bound; K3 may use fewer
+        per_sm = _h100_blocks_per_sm(1242, A, 4, regs)
+        for C, B in ((2982, 16), (127, 104), (16, 16), (21, 12)):
+            G, TP, n = T._pick_launch(per_sm, C, B, n_sm)
+            assert n == per_sm(G, TP) > 0
+            if C >= T.MAX_ROWS and regs == 64:  # K1
+                assert (G, TP) == _pick_before(per_sm, C, B, n_sm), (C, B)
+            assert TP > 1  # no block barrier at every position
+            if C > 100:
+                assert G > 1, (C, B, G)
+        for C in (1, 2):
+            for B in (16, 104):
+                assert T._pick_launch(per_sm, C, B, n_sm)[0] == 1, (C, B)
+        assert T._pick_launch(per_sm, 2982, 16, n_sm, group=2)[0] == 2
+    per_sm = _h100_blocks_per_sm(1242, 32, 4, 64)
+    assert T._pick_launch(per_sm, 2982, 16, n_sm)[:2] == (8, 4)
+    assert T._pick_launch(per_sm, 16, 16, n_sm)[:2] == (1, 8)
+    with pytest.raises(ValueError, match="fits"):
+        T._pick_launch(lambda G, TP: 0, 16, 16, n_sm)

@@ -30,8 +30,12 @@ from dbgphmm_tpu.phmm.template import make_template
 from dbgphmm_tpu.seq.collection import ReadCollection, StyledSequence
 from dbgphmm_tpu.seq.random_seq import generate
 from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
+from dbgphmm_tpu_torch.multi_dbg import output as port_output
 from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+from dbgphmm_tpu_torch.multi_dbg.seed import seed_mappings_arrays
+from dbgphmm_tpu_torch.e2e import Dataset
 from dbgphmm_tpu_torch.ops import mapped_scorer as T
+from dbgphmm_tpu_torch.ops.forward import pad_reads as port_pad_reads
 from dbgphmm_tpu_torch.ops import sparse as TS
 from dbgphmm_tpu_torch.phmm import params as port_params
 from dbgphmm_tpu_torch.phmm import template as port_template
@@ -274,3 +278,133 @@ def test_score_candidates_rescues_the_linear_scorers_flagged_candidates(
                                 space="log")
     TP.score_candidates(dbg, cands, 400, 10, log_scorer)
     assert seen == [len(cands)] * len(log_scorer.chunks)  # no second call
+
+
+# -- what the K3 kernel relies on, shown on its twin ---------------------------
+
+
+@pytest.fixture(scope="module")
+def bench_case():
+    """Streams of the committed real draft (data/bench, k=40; 43,743 full
+    edges): 6 reads cut to 600 bases, mapped by the seed chain alone, in
+    one read chunk with its compact ids trimmed as in production.  Four
+    candidates: the draft's copy numbers and three with 5% of the compact
+    edges moved by -1..+1, all with the chunk's last 30 compact ids at 0,
+    so that ids past the live columns occur."""
+    ds = Dataset.from_json_file("data/bench/data.json")
+    dbg = port_output.from_dbg_file("data/bench/data.dbg")
+    params = port_params.PHMMParams.uniform(0.001)
+    reads = [r[:600] for r in list(ds.reads)[:6]]
+    seeds = seed_mappings_arrays(dbg, reads)
+    hint = TP.Mappings(seeds, [np.zeros(a.shape) for a in seeds], None, None, -1)
+    codes, lens = port_pad_reads(reads)
+    tpl = port_template.make_template(dbg, params)
+    mn = TS.pad_mappings(hint, codes.shape[1], max(a.shape[1] for a in seeds))
+    pos = TS.precompute_positions(mn, tpl.parent_idx,
+                                  parent_exists=tpl.parent_exists)
+    scorer = T.MappedScorer(tpl, pos, codes, lens, params, "cpu")
+    assert len(scorer.chunks) == 1
+    s = scorer.chunks[0]
+    rng = np.random.default_rng(5)
+    base = np.asarray(dbg.get_copy_nums())
+    cands = [base] + [np.maximum(base + np.where(rng.random(base.size) < 0.05,
+                                                 rng.integers(-1, 2, base.size),
+                                                 0), 0) for _ in range(3)]
+    for cn in cands:
+        cn[s.ce_ids[-30:]] = 0
+    eff, total = T._eff_matrix(s, [cn.tolist() for cn in cands])
+    return dict(eff=eff, inv=T.lin_inv_total(total), streams=scorer._dev[0],
+                sentinel=s.nc_pad - 1)
+
+
+def synthetic_case():
+    """Random streams shaped like a de Bruijn graph read's (D = 4, A = 32):
+    most positions have one parent per slot and one out-edge per source
+    node, 5% are branch positions; eff columns from n_live = 128 on are 0
+    for every candidate, and the unused out-edge columns hold ids anywhere
+    in [n_live, NC)."""
+    rng = np.random.default_rng(11)
+    L, D, B, A, NC, C, n_live = 200, 4, 8, 32, 256, 5, 128
+    emis = rng.integers(0, 4, (L, B, A))
+    emis[rng.random((L, B, A)) < 0.2] = 9
+    branch = rng.random((L, 1, B, A)) < 0.05
+    prevp = rng.integers(-1, A, (L, D, B, A))
+    curp = rng.integers(-1, A, (L, D, B, A))
+    dence = rng.integers(0, n_live, (L, D, B, A))
+    numce = rng.integers(0, n_live, (L, B, A))
+    dead = rng.random((L, B, A)) < 0.1  # edges at copy number 0 everywhere
+    numce[dead] = rng.integers(n_live, NC, int(dead.sum()))
+    for x in (prevp, curp):
+        x[:, 1:] = np.where(branch, x[:, 1:], -1)
+    dence[:, 1:] = np.where(branch, dence[:, 1:],
+                            rng.integers(n_live, NC, (L, D - 1, B, A)))
+    dence[:, 0] = np.where(branch[:, 0], dence[:, 0], numce)
+    eff = rng.integers(0, 4, (C, NC)).astype(np.float32)
+    eff[:, n_live:] = 0.0
+    eff[:, n_live - 1] = 1.0
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32)
+    streams = [i32(a) for a in (rng.integers(L // 2, L + 1, B),
+                                rng.integers(0, 4, (L, B)), emis, numce,
+                                rng.integers(-1, A, (L, B, A)), prevp, curp,
+                                dence)]
+    inv = 1.0 / rng.integers(1000, 100000, C).astype(np.float64)
+    return dict(eff=eff, inv=inv, streams=streams, sentinel=NC - 1)
+
+
+def _case(name, request):
+    return request.getfixturevalue("bench_case") if name == "bench" \
+        else synthetic_case()
+
+
+def _k3_twin(case, dtype, eff=None, streams=None):
+    lt = T.lin_params(port_params.PHMMParams.uniform(0.001), np.float64)
+    eff = torch.as_tensor(case["eff"] if eff is None else eff, dtype=dtype)
+    return T.mapped_scores_linear(
+        eff, torch.as_tensor(case["inv"], dtype=dtype),
+        *(case["streams"] if streams is None else streams),
+        torch.as_tensor(lt, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["bench", "synthetic"])
+def test_linear_twin_on_the_live_columns_only(name, dtype, request):
+    """The table the K3 kernel stages: each candidate's eff over the live
+    columns (live_columns) plus one zero column that serves every compact
+    id at or past them.  The twin on that table, with every id past the
+    live columns sent to the zero column, equals the twin on the full table
+    bit for bit."""
+    case = _case(name, request)
+    eff = torch.as_tensor(case["eff"])
+    n_live = T.live_columns(eff)
+    assert n_live < eff.shape[1] - 1
+    lens, codes, emis, numce, selfp, prevp, curp, dence = case["streams"]
+    assert (numce >= n_live).any() and (dence >= n_live).any()
+    cut = torch.cat([eff[:, :n_live], torch.zeros((eff.shape[0], 1))], dim=1)
+    streams = (lens, codes, emis, numce.clamp(max=n_live), selfp, prevp, curp,
+               dence.clamp(max=n_live))
+    full = _k3_twin(case, dtype)
+    assert torch.isfinite(full).any()
+    assert torch.equal(_k3_twin(case, dtype, eff=cut.numpy(), streams=streams),
+                       full)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["bench", "synthetic"])
+def test_columns_past_the_live_degree_columns_add_nothing(name, dtype, request):
+    """K3 runs a position with only its first live_degree_columns degree
+    columns.  The twin with every later column emptied at each position
+    (no parent, the sentinel out-edge) equals the twin on the streams as
+    they are, bit for bit; the emptying changes the streams."""
+    case = _case(name, request)
+    lens, codes, emis, numce, selfp, prevp, curp, dence = case["streams"]
+    L, D, B, A = prevp.shape
+    ncols = T.live_degree_columns(prevp, curp, dence,
+                                  T.live_columns(torch.as_tensor(case["eff"])))
+    assert (ncols < D).any()
+    past = torch.arange(D).view(1, D, 1, 1) >= ncols.view(L, 1, B, 1)
+    emptied = (prevp.masked_fill(past, -1), curp.masked_fill(past, -1),
+               dence.masked_fill(past, case["sentinel"]))
+    assert not torch.equal(emptied[2], dence)
+    streams = (lens, codes, emis, numce, selfp, *emptied)
+    assert torch.equal(_k3_twin(case, dtype, streams=streams),
+                       _k3_twin(case, dtype))
