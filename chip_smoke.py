@@ -13,9 +13,16 @@ and the script exits non-zero:
                  checkout's sources, one compiler process each, all at once,
                  after deleting any library an earlier run left; prints each
                  kernel instance's ptxas registers and spills.
-3. mapping    -- seeded + refined mappings of all 98 reads of the committed
-                 k=40 draft on the GPU (params of the CLI's default
-                 --p-error), computed once and shared by the phases below.
+3. infer      -- the port's CLI, ``sim-infer data/bench/data.json -d
+                 data/bench/data.dbg -K 40 -I 1`` on all 98 reads (one
+                 k-stage and the final full-neighbourhood pass; cut from
+                 -K 41 to keep the smoke inside its time limit), in this
+                 process so that the launch counters can be read: the K1
+                 kernel ran, no twin did, no likelihood is NaN, the per-k
+                 files exist; K1's launches in each stage.
+   mapping    -- the seeded + refined mapping of all 98 reads of the draft
+                 that infer's first k-stage computed on the GPU (params of
+                 the CLI's default --p-error), shared by the phases below.
 4. k1_parity  -- K1 against its plain PyTorch twin run on the card in
                  float64: a real case (16 reads of the draft at full length,
                  the draft's copy numbers + 15 rescue candidates, NC trimmed
@@ -24,7 +31,9 @@ and the script exits non-zero:
                  candidates, on the same reads: several candidates per block
                  and a partial last group), and synthetic cases at A = 16, 64, 128
                  (D = 3, several 128-wide eff chunks, 21 candidates at 1 and 8
-                 per block).  Per read |kernel - twin| <= 1e-5 |twin| + 0.05
+                 per block, SYNTH_L positions); one float64 twin call on the main path's
+                 shape serves the real case too (its first rows).  Per
+                 read |kernel - twin| <= 1e-5 |twin| + 0.05
                  nats (float32 over a 10 kb read: ~7 barrier-separated
                  rounds per base, each rounding ~6e-8 of a renormalised value
                  of magnitude ~10, plus the Kahan-summed offset), -inf exactly
@@ -58,30 +67,58 @@ and the script exits non-zero:
                  98 reads).  K3's blocked candidate goes through
                  score_candidates with a linear scorer, which must rescue
                  it through K2.
-6. refine     -- the first 4 reads' mappings refined on the CPU (float64)
-                 against the GPU's (float32) from phase 3: read
-                 log-likelihoods to 1e-4 relative, >= 99% of positions with
-                 the same top-1 node.
+6. refine     -- the first 4 reads' mappings from ``mapping`` (GPU, float32)
+                 against the child's seeded + refined CPU ones (float64):
+                 read log-likelihoods to 1e-4 relative, >= 99% of
+                 positions with the same top-1 node.
 7. scorer_spaces -- sample_posterior(max_iter=1) on all 98 reads with the
                  shared mapping, once per scorer space ("packed" K1, "log"
                  K2, "linear" K3 with the rescue): the same accepted move and
                  max_copy_nums, per-sample likelihoods within the summed
                  per-read tolerance; each space launches its kernel and no
                  twin; score seconds, scorings/s and candidates rescued.
-8. inspect    -- the port's CLI, ``inspect -d data/bench/data.dbg
-                 data/bench/data.json``, in this process: K2 ran, no twin
-                 did, and the orig and true likelihoods agree with a K1
-                 scoring of the same two candidates on the CLI's mapping.
-9. infer      -- the port's CLI, ``sim-infer data/bench/data.json -d
-                 data/bench/data.dbg -K 41 -I 1`` on all 98 reads (two
-                 k-stages, purge + extension, the final full-neighbourhood
-                 pass), in this process so that the launch counters can be
-                 read: the K1 kernel ran, no twin did, no likelihood is NaN,
-                 the per-k files exist; K1's launches in each stage.
+8. inspect    -- the port's CLI, ``inspect -d u3.dbg u3.json`` on u500(3)
+                 (phase 9's dataset; the smaller graph keeps the smoke
+                 inside its time limit), in this process: K2 ran, no twin did, and the
+                 orig and true likelihoods agree with a K1 scoring of the
+                 same two candidates on the CLI's mapping.
+9. dense_decode, adaptive_decode -- the two u500 datasets (tandem repeat
+                 of 3 / 8 units of 500 bases, diploid, 15x full-length
+                 reads, k=40 draft), made by the port's ``sim-draft`` right
+                 after the build (``datasets``): generate_mappings from
+                 scratch on the GPU for all reads.  u500(3) (3,567 full
+                 edges) must take the dense decode, u500(8) (8,358) the
+                 dense-compute sparse-adaptive one (n_warmup = L); the
+                 first 4 reads' result against the CPU's float64 decode
+                 (read log-likelihoods to 1e-4 relative, >= 99% equal
+                 top-1 nodes); decode seconds, seconds per read base, the
+                 dense read chunk and its forward tables' bytes.
+    batch      -- right after dense_decode, on u500(3): batch scoring
+                 (ops.batch.candidate_log_likelihoods, the draft's copy
+                 numbers and three neighbours stacked, dense and over the
+                 GPU's dense decode) on the first 4 reads in float32
+                 against float64 on the card to 1e-4 relative;
+                 sample_posterior(mappings=None, max_iter=1) on them
+                 through BatchScorer, with no scorer kernel or twin
+                 launched; the CLI's ``table`` (float64 on the card) on all
+                 reads against the CPU's float64 forward of the first read
+                 and the float64 batch score of the draft, to 1e-9.
+10. frontier_decode -- DBGPHMM_SEED_MAPPING=0 on 4 full-length reads of
+                 data/bench (43,743 full edges): the evolving-frontier decode
+                 (n_warmup 16, bfloat16 stored tables); the same gates on
+                 the first read.
+11. small_infer -- the CLI's ``sim-infer -K 41 -I 1`` on u500(8), in this
+                 process: K1 ran, no twin did, no likelihood is NaN, the
+                 per-k files exist; the stage lines with decode_s and the
+                 ``# assembled=`` line.
 
-Each path's launch counters are set to 0 just before it runs and read just
-after.  Then, on lines of their own: the card's name and power limit as
-nvidia-smi prints them, the kernel table ({"kernels": [...]}), and last
+The CPU float64 mappings of phases 6, 9 and 10 and the batch phase's
+float64 score run in a child process (this script with
+``--cpu-reference``, 4 threads), started after ``datasets`` and joined by
+the phases that read them.  Each path's launch counters are set to 0 just
+before it runs and read just after.  Then, on lines of their
+own: the card's name and power limit as nvidia-smi prints them, the kernel
+table ({"kernels": [...]}; K1's launches are small_infer's), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -110,6 +147,10 @@ TWINS = {"K1": "mapped_scores_log_reference",
          "K2": "mapped_scores_log_single_reference",
          "K3": "mapped_scores_linear_reference"}
 REL_TOL, ABS_TOL = 1e-5, 0.05  # per-read kernel vs float64 twin
+# positions of the synthetic cases: they vary the slot sets' shapes, not
+# the reads' length; their float64 twins are bound by the host's launch
+# rate, so their time grows with the positions
+SYNTH_L = 500
 # the card's peaks (NVIDIA's H100 SXM data sheet)
 PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
 PEAK_HBM = 3.35e12  # bytes/s
@@ -295,19 +336,21 @@ def first_reads(maps, n):
                     maps.anchor_logps[:n], maps.stages_since_anchor)
 
 
-def phase_mapping(device, params, ds, dbg):
+def phase_mapping(params, ds, first):
+    """The seeded + refined mapping of all reads of the draft that the
+    ``infer`` phase's first k-stage computed (generate_mappings on the
+    GPU, the CLI's default --p-error), shared by the phases below."""
     import numpy as np
 
-    from dbgphmm_tpu_torch.multi_dbg.posterior import StageTimes, generate_mappings
-
     t0 = time.perf_counter()
-    reads = list(ds.reads)
-    times = StageTimes(k=dbg.k)
-    maps = generate_mappings(dbg, params, reads, device, times=times)
+    maps = first["maps"]
+    assert first["params"] == params, first["params"]
+    assert maps.n_reads() == len(ds.reads)
     assert np.isfinite(maps.read_logps).all()
-    emit("mapping", t0, reads=len(reads), bases=sum(len(r) for r in reads),
-         width=max(n.shape[1] for n in maps.nodes), seed_s=times.seed_s,
-         refine_s=times.refine_s)
+    emit("mapping", t0, reads=maps.n_reads(),
+         bases=sum(len(r) for r in ds.reads),
+         width=max(n.shape[1] for n in maps.nodes), seed_s=first["seed_s"],
+         refine_s=first["refine_s"])
     return maps
 
 
@@ -356,20 +399,33 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
         """The wrapper's (G, TP) for this eff table."""
         return T.launch_plan("K1", eff, dev_s[5])[:2]
 
-    def parity(batch, what):
-        """The kernel against the float64 twin on one batch; returns the
-        kernel's [C, B] float32 result and the max abs error."""
-        got = T.mapped_scores_log(*k1_args(batch, torch.float32), **kw)
-        ref = T.mapped_scores_log_reference(*k1_args(batch, torch.float64), **kw)
+    def parity(got, ref_np, what):
+        """The kernel's [C, B] output against the float64 twin's; returns
+        the max abs error."""
         got_np = got[:, :B].double().cpu().numpy()
-        ref_np = ref[:, :B].cpu().numpy()
         err = check_close(got_np, ref_np, what)
         same_best(got_np, ref_np, what)
-        return got, err
+        return err
+
+    # the main path's launch shape: the draft's whole neighbourhood (the
+    # final pass's batch) on the same reads, the real case's candidates
+    # first.  The wrapper picks G = 8; one candidate is dropped if needed
+    # so that the last group is partial (its tail rows recompute the last
+    # candidate and are not written).  One float64 twin call holds both
+    # the real case (its first rows) and the whole batch.
+    seen = {tuple(cn) for cn in cands}
+    full = cands + [cn for cn, _i in
+                    to_neighbor_copy_nums_and_infos(dbg, NeighborConfig())
+                    if tuple(cn) not in seen]
+    if len(full) % T.MAX_ROWS == 0:
+        full.pop()
+    ref_full = T.mapped_scores_log_reference(*k1_args(full, torch.float64),
+                                             **kw)[:, :B].cpu().numpy()
 
     # the real case: 16 candidates x 16 reads (the wrapper picks G = 1)
-    got, err_real = parity(cands, "real case")
     args32 = k1_args(cands, torch.float32)
+    got = T.mapped_scores_log(*args32, **kw)
+    err_real = parity(got, ref_full[:len(cands)], "real case")
     ms_real = cuda_ms(lambda: T.mapped_scores_log(*args32, **kw), 5)
     real = dict(C=len(cands), B=B, L=int(L), A=int(A), D=int(D), NC=s.nc_pad,
                 n_live=T.live_columns(args32[0]),
@@ -377,22 +433,13 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
                 max_abs_err=err_real, ms=ms_real,
                 kernel_scorings_per_s=len(cands) * B / (ms_real / 1e3))
 
-    # the main path's launch shape: the draft's whole neighbourhood (the
-    # final pass's batch) on the same reads, the real case's candidates
-    # first.  The wrapper picks G = 8; one candidate is dropped if needed
-    # so that the last group is partial (its tail rows recompute the last
-    # candidate and are not written).
-    seen = {tuple(cn) for cn in cands}
-    full = cands + [cn for cn, _i in
-                    to_neighbor_copy_nums_and_infos(dbg, NeighborConfig())
-                    if tuple(cn) not in seen]
-    if len(full) % T.MAX_ROWS == 0:
-        full.pop()
     args_f = k1_args(full, torch.float32)
     n_live = T.live_columns(args_f[0])
     G_full, TP_full = launch_of(args_f[0])
     assert G_full > 1, f"the wrapper picks G={G_full} for the full batch"
-    out_f, err_full = parity(full, "full batch")
+    out_f = T.mapped_scores_log(*args_f, **kw)
+    err_full = parity(out_f, ref_full, "full batch")
+    del ref_full
     got1 = T.mapped_scores_log(*args32, group=1, **kw)
     assert torch.equal(got1, got) and torch.equal(out_f[:len(cands)], got1), \
         f"the real case's rows at G={G_full} differ from G=1"
@@ -423,7 +470,7 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
     synth = []
     err_max = max(err_real, err_full)
     for A_s, NC_s in ((16, 256), (64, 384), (128, 256)):
-        eff_s, linv_s, ints = synthetic_case(A_s, 3, NC_s, C=21, B=12, L=2000,
+        eff_s, linv_s, ints = synthetic_case(A_s, 3, NC_s, C=21, B=12, L=SYNTH_L,
                                              seed=A_s, device=device)
         a32 = (on(eff_s, torch.float32), on(linv_s, torch.float32), *ints,
                on(lt, torch.float32))
@@ -567,7 +614,7 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size, rescue_args=None):
     # MAX_ROWS candidates per block (21 candidates: a partial last group)
     synth, err_max = [], err_real
     for A_s, NC_s in ((16, 256), (64, 384), (128, 256)):
-        eff_s, linv_s, ints = synthetic_case(A_s, 3, NC_s, C=21, B=12, L=2000,
+        eff_s, linv_s, ints = synthetic_case(A_s, 3, NC_s, C=21, B=12, L=SYNTH_L,
                                              seed=A_s, device=device)
         inv_s = np.exp(linv_s) if linear else linv_s
         r_np = twin(on(eff_s, torch.float64), on(inv_s, torch.float64), *ints,
@@ -660,27 +707,33 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size, rescue_args=None):
                 bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
 
 
-def phase_refine(params, ds, dbg, maps98):
+def phase_refine(maps98, ref_proc, tmp):
+    """The GPU's (float32) seeded + refined mappings of the first reads
+    against the child's float64 CPU ones (``ref_refine``)."""
+    t0 = time.perf_counter()
+    ref = cpu_reference_of(ref_proc, tmp, "refine")
+    R = len(ref["read_logps"])
+    rel, agree = hold_to_reference(first_reads(maps98, R), ref, "refine")
+    emit("refine", t0, reads=R, cpu_f64_s=float(ref["seconds"]),
+         max_rel_logp_diff=rel, top1_agree=agree)
+
+
+def hold_to_reference(maps, ref, what):
+    """A GPU mapping of the reference's reads against its float64 CPU
+    one: read log-likelihoods to 1e-4 relative and >= 99% of positions
+    with the same top-1 node.  Returns (max relative diff, agreement)."""
     import numpy as np
 
-    from dbgphmm_tpu_torch.multi_dbg.posterior import generate_mappings
-
-    t0 = time.perf_counter()
-    reads = list(ds.reads)[:4]
-    g = first_reads(maps98, len(reads))
-    c = generate_mappings(dbg, params, reads, "cpu")
-    cpu_s = time.perf_counter() - t0
-    rel = np.abs(g.read_logps - c.read_logps) / np.abs(c.read_logps)
-    assert np.isfinite(g.read_logps).all() and rel.max() <= 1e-4, rel.max()
-    same = total = 0
-    for a, b in zip(g.nodes, c.nodes):
-        has = (a[:, 0] >= 0) | (b[:, 0] >= 0)
-        same += int((a[:, 0] == b[:, 0])[has].sum())
-        total += int(has.sum())
-    assert same >= 0.99 * total, (same, total)
-    emit("refine", t0, reads=len(reads), bases=sum(len(r) for r in reads),
-         cpu_f64_s=cpu_s, max_rel_logp_diff=float(rel.max()),
-         top1_agree=same / max(total, 1))
+    R = len(ref["read_logps"])
+    got = maps.read_logps[:R]
+    assert np.isfinite(got).all(), (what, got)
+    rel = np.abs(got - ref["read_logps"]) / np.abs(ref["read_logps"])
+    top1 = np.concatenate([a[:, 0] for a in maps.nodes[:R]])
+    has = (top1 >= 0) | (ref["top1"] >= 0)
+    agree = float((top1 == ref["top1"])[has].mean())
+    assert rel.max() <= 1e-4, (what, rel)
+    assert agree >= 0.99, (what, agree)
+    return float(rel.max()), agree
 
 
 def phase_scorer_spaces(device, params, ds, dbg, maps98):
@@ -733,9 +786,11 @@ def phase_scorer_spaces(device, params, ds, dbg, maps98):
     return out
 
 
-def phase_inspect(device, ds, dbg):
+def phase_inspect(device, json_path, dbg_path):
     import numpy as np
 
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as mdo
     from dbgphmm_tpu_torch.phmm.template import make_template
     from dbgphmm_tpu_torch import cli
     from dbgphmm_tpu_torch.multi_dbg import posterior as TP
@@ -744,6 +799,8 @@ def phase_inspect(device, ds, dbg):
     from dbgphmm_tpu_torch.ops.sparse import pad_mappings, precompute_positions
 
     t0 = time.perf_counter()
+    ds = Dataset.from_json_file(json_path)
+    dbg = mdo.from_dbg_file(dbg_path)
     # observe the mapping the CLI builds, to score its two candidates by K1
     seen = []
     real_generate = TP.generate_mappings
@@ -753,8 +810,7 @@ def phase_inspect(device, ds, dbg):
         return seen[-1]
 
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["inspect", "-d", str(ROOT / "data/bench/data.dbg"),
-                str(ROOT / "data/bench/data.json"), "-o",
+        argv = ["inspect", "-d", str(dbg_path), str(json_path), "-o",
                 os.path.join(tmp, "out")]
         buf = io.StringIO()
         TP.generate_mappings = recording
@@ -793,11 +849,17 @@ def phase_inspect(device, ds, dbg):
         k1 = float(row.sum())
         assert abs(sc.likelihood - k1) <= tol, (name, sc.likelihood, k1, tol)
         out[name] = dict(k2=sc.likelihood, k1=k1, tol=tol, p=sc.p())
-    emit("inspect", t0, argv=argv[:1], k2_launches=launches["K2"], **out)
+    emit("inspect", t0, argv=argv[:1], reads=len(ds.reads),
+         full_edges=dbg.n_edges_full(), k2_launches=launches["K2"], **out)
     return launches["K2"]
 
 
-def phase_infer():
+def run_sim_infer(phase, json_path, dbg_path, k_max, ks):
+    """The port's CLI ``sim-infer <json> -d <dbg> -K k_max -I 1`` in this
+    process: the K1 kernel ran, no twin did, no likelihood is NaN, the
+    per-k files of ``ks`` exist; K1's launches in each stage.  Returns K1's
+    launches and the first stage's mapping of the draft (a dict: the
+    Mappings, its params, its seed and refine seconds)."""
     import numpy as np
 
     from dbgphmm_tpu_torch import cli
@@ -818,12 +880,30 @@ def phase_infer():
                               samples=len(post.samples)))
         return post
 
+    # the first stage's mapping of the draft, kept for the phases after
+    # (generate_mappings calls itself per read chunk: only the outer call)
+    real_generate = TP.generate_mappings
+    first, depth = {}, [0]
+
+    def capturing(dbg, params, reads, device, **kw):
+        depth[0] += 1
+        try:
+            maps = real_generate(dbg, params, reads, device, **kw)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0 and not first:
+            times = kw.get("times")
+            first.update(maps=maps, params=params,
+                         seed_s=times.seed_s if times else None,
+                         refine_s=times.refine_s if times else None)
+        return maps
+
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "out")
-        argv = ["sim-infer", str(ROOT / "data/bench/data.json"),
-                "-d", str(ROOT / "data/bench/data.dbg"), "-o", prefix,
-                "-K", "41", "-I", "1"]
+        argv = ["sim-infer", str(json_path), "-d", str(dbg_path), "-o", prefix,
+                "-K", str(k_max), "-I", "1"]
         TP.sample_posterior = counting
+        TP.generate_mappings = capturing
         reset_counters()
         buf = io.StringIO()
         try:
@@ -835,25 +915,328 @@ def phase_infer():
             raise
         finally:
             TP.sample_posterior = real_sample
+            TP.generate_mappings = real_generate
         launches, twins = read_counters()
-        assert launches["K1"] > 0, "the K1 kernel never ran on the main path"
-        assert not any(twins.values()), f"a twin ran on CUDA: {twins}"
+        assert launches["K1"] > 0, f"{phase}: the K1 kernel never ran"
+        assert not any(twins.values()), f"{phase}: a twin ran on CUDA: {twins}"
         lls = np.asarray([s.score.likelihood for s in post.samples])
-        assert not np.isnan(lls).any(), "NaN likelihood"
+        assert not np.isnan(lls).any(), f"{phase}: NaN likelihood"
         files = sorted(os.listdir(tmp))
-        for k in (40, 41):
+        for k in ks:
             for ext in ("dbg", "map.mpz", "post", "gfa", "inspect"):
-                assert f"out.k{k}.{ext}" in files, f"missing out.k{k}.{ext}"
+                assert f"out.k{k}.{ext}" in files, f"{phase}: missing out.k{k}.{ext}"
         assert "out.final.euler.fa" in files
         tail = [ln for ln in buf.getvalue().splitlines()
-                if ln.startswith("# assembled=")]
+                if ln.startswith(("# assembled=", "[mappings] dense"))]
     assert sum(st["k1_launches"] for st in per_stage) == launches["K1"]
-    emit("infer", t0, argv=argv[:1] + argv[4:], launches=launches["K1"],
+    emit(phase, t0, argv=argv[:1] + argv[4:], launches=launches["K1"],
          k1_launches_per_stage=per_stage,
          twin_calls=twins["K1"], final_k=dbg.k, n_samples=len(lls),
-         n_finite=int(np.isfinite(lls).sum()), result=tail,
+         n_finite=int(np.isfinite(lls).sum()), log=tail,
          stages=[st.as_dict() for st in stages])
-    return launches["K1"]
+    return launches["K1"], first
+
+
+# -- the from-scratch decodes --------------------------------------------------
+
+
+def u500_argv(n_unit, prefix):
+    """``sim-draft`` of a u500 dataset: a diploid tandem repeat of n_unit
+    units of 500 bases between 300-base unique ends, 15x full-length reads
+    at 0.1% error, and its k=40 draft."""
+    return ["sim-draft", "-k", "40", "--unit-size", "500", "--n-unit",
+            str(n_unit), "--unit-seed", "0", "--div-init", "0.02", "--div-seed",
+            "1", "--end-length", "300", "-P", "2", "--div-hap", "0.02",
+            "--hap-seed", "0", "-C", "15", "-L", "10000", "-p", "0.001", "-o",
+            str(prefix)]
+
+
+U500 = {"dense": 3, "adaptive": 8}  # phase: --n-unit
+REF_READS = {"refine": 4, "dense": 4, "adaptive": 4, "frontier": 1}  # held to f64
+FRONTIER_READS = 4
+BATCH_READS = 4
+
+
+def phase_datasets(tmp):
+    """The two u500 datasets, by the port's sim-draft (in this process)."""
+    from dbgphmm_tpu_torch import cli
+    from dbgphmm_tpu_torch.multi_dbg import output as out
+
+    t0 = time.perf_counter()
+    info = {}
+    for name, n_unit in U500.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ds = cli.main(u500_argv(n_unit, Path(tmp) / f"u{n_unit}"))
+        dbg = out.from_dbg_file(Path(tmp) / f"u{n_unit}.dbg")
+        info[name] = dict(n_unit=n_unit, reads=len(ds.reads),
+                          max_read=max(len(r) for r in ds.reads),
+                          full_edges=dbg.n_edges_full(),
+                          compact_edges=dbg.n_edges_compact(),
+                          genome_size=ds.genome_size())
+    emit("datasets", t0, **info)
+    return info
+
+
+def save_reference(tmp, name, **arrays):
+    """ref_<name>.npz in ``tmp``, written under another name and renamed,
+    so that a reader never sees a half-written file."""
+    import numpy as np
+
+    part = Path(tmp) / f"ref_{name}.part.npz"
+    np.savez(part, **arrays)
+    os.replace(part, Path(tmp) / f"ref_{name}.npz")
+
+
+def batch_candidates(dbg):
+    """The batch phase's candidates: the draft's copy numbers and three
+    neighbours that add one copy to compact edge 0, 1 or 2."""
+    base = list(dbg.get_copy_nums())
+    cands = [base]
+    for e in range(3):
+        cn = list(base)
+        cn[e] += 1
+        cands.append(cn)
+    return cands
+
+
+def cpu_reference(tmp):
+    """The child process: the float64 CPU mappings of the first reads of
+    the refine and decode phases, and the batch phase's float64 score, each
+    saved as ref_<phase>.npz in ``tmp``."""
+    import numpy as np
+    import torch
+
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as out
+    from dbgphmm_tpu_torch.multi_dbg.posterior import generate_mappings
+    from dbgphmm_tpu_torch.phmm.params import PHMMParams
+
+    torch.set_num_threads(4)
+    params = PHMMParams.uniform(0.001)
+    bench = (ROOT / "data/bench/data.json", ROOT / "data/bench/data.dbg")
+    cases = [("refine", *bench)]
+    cases += [(name, Path(tmp) / f"u{n}.json", Path(tmp) / f"u{n}.dbg")
+              for name, n in U500.items()]
+    cases.append(("frontier", *bench))
+    for name, js, dbg_path in cases:
+        t0 = time.perf_counter()
+        reads = list(Dataset.from_json_file(js).reads)[:REF_READS[name]]
+        if name == "frontier":
+            os.environ["DBGPHMM_SEED_MAPPING"] = "0"
+        dbg = out.from_dbg_file(dbg_path)
+        maps = generate_mappings(dbg, params, reads, "cpu")
+        save_reference(tmp, name, read_logps=maps.read_logps,
+                       top1=np.concatenate([a[:, 0] for a in maps.nodes]),
+                       seconds=time.perf_counter() - t0)
+        if name == "dense":
+            batch_reference(tmp, dbg, params, reads)
+
+
+def batch_reference(tmp, dbg, params, reads):
+    """The batch phase's float64 CPU score: the ``table`` command's
+    per-read forward of u500(3)'s first read."""
+    import torch
+
+    from dbgphmm_tpu_torch.ops.forward import forward_scores, pad_reads, to_device
+
+    t0 = time.perf_counter()
+    codes, lens = pad_reads(reads[:1])
+    dm = to_device(dbg.to_phmm(params), "cpu", torch.float64)
+    table = forward_scores(dm, torch.as_tensor(codes), torch.as_tensor(lens))
+    save_reference(tmp, "batch", table=table.numpy(),
+                   seconds=time.perf_counter() - t0)
+
+
+def start_cpu_reference(tmp):
+    log = open(Path(tmp) / "cpu_reference.log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--cpu-reference", str(tmp)], cwd=ROOT,
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def cpu_reference_of(proc, tmp, name):
+    """The child's float64 result of phase ``name`` (waiting for it)."""
+    import numpy as np
+
+    path = Path(tmp) / f"ref_{name}.npz"
+    while not path.exists():
+        if proc.poll() is not None:
+            raise RuntimeError(
+                "the CPU reference process failed:\n"
+                + (Path(tmp) / "cpu_reference.log").read_text()[-3000:])
+        time.sleep(2)
+    return dict(np.load(path))
+
+
+def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
+                 n_reads=None, env=None):
+    """generate_mappings from scratch on the GPU; the decode branch it took;
+    the first reads against the CPU's float64 decode."""
+    import numpy as np
+
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as out
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+
+    t0 = time.perf_counter()
+    ds = Dataset.from_json_file(json_path)
+    dbg = out.from_dbg_file(dbg_path)
+    reads = list(ds.reads)[:n_reads]
+    calls = []
+
+    def recording(fn):
+        def wrapped(dm, codes, lens, **kw):
+            calls.append(dict(fn=fn.__name__, B=int(codes.shape[0]),
+                              L=int(codes.shape[1]), n=int(dm.emission.shape[0]),
+                              **{k: v for k, v in kw.items()
+                                 if k in ("n_top", "n_warmup", "stored_k",
+                                          "store_bf16")}))
+            return fn(dm, codes, lens, **kw)
+        return wrapped
+
+    real = {f: getattr(TP, f) for f in ("node_freqs_and_mappings",
+                                        "mappings_sparse_adaptive")}
+    old_env = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    times = TP.StageTimes(k=dbg.k)
+    buf = io.StringIO()
+    try:
+        for f, fn in real.items():
+            setattr(TP, f, recording(fn))
+        with contextlib.redirect_stdout(buf):
+            maps = TP.generate_mappings(dbg, params, reads, device, times=times)
+    finally:
+        for f, fn in real.items():
+            setattr(TP, f, fn)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    n = dbg.n_edges_full()
+    want = {"dense": "node_freqs_and_mappings"}.get(name, "mappings_sparse_adaptive")
+    assert calls and all(c["fn"] == want for c in calls), (name, calls)
+    if name == "adaptive":
+        assert all(c["n_warmup"] == c["L"] and c["stored_k"] is None
+                   for c in calls), calls
+    if name == "frontier":
+        assert all(c["n_warmup"] == 16 and c["store_bf16"] for c in calls), calls
+    assert np.isfinite(maps.read_logps).all(), maps.read_logps
+    chunk = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[mappings] dense decode")]
+    bases = sum(len(r) for r in reads)
+
+    ref = cpu_reference_of(ref_proc, tmp, name)
+    rel, agree = hold_to_reference(maps, ref, name)
+    emit(f"{name}_decode", t0, reads=len(reads), bases=bases, full_edges=n,
+         calls=calls, decode_s=times.decode_s,
+         decode_s_per_read_base=times.decode_s / bases,
+         width=max(a.shape[1] for a in maps.nodes), dense_chunk=chunk,
+         ref_reads=len(ref["read_logps"]), max_rel_logp_diff=rel,
+         top1_agree=agree, cpu_f64_s=float(ref["seconds"]))
+    return maps
+
+
+def phase_batch(device, params, json_path, dbg_path, reads_fa, dense_maps,
+                ref_proc, tmp):
+    """Batch scoring and the ``table`` command on u500(3), the paths of
+    sample_posterior without mappings: candidate_log_likelihoods of
+    batch_candidates() on the first reads, dense and over the GPU's dense
+    decode of them, in float32 against float64 on the card (1e-4
+    relative, the decode gates); sample_posterior(mappings=None,
+    max_iter=1) on the same reads through BatchScorer, launching no scorer
+    kernel and no twin, its draft sample against the float64 score; the
+    port's CLI ``table`` on all reads (float64 on the card) against the
+    child's float64 CPU forward of the first read and against the float64
+    dense score of the draft, to 1e-9 relative."""
+    import numpy as np
+    import torch
+
+    from dbgphmm_tpu_torch import cli
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as out
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+    from dbgphmm_tpu_torch.ops.batch import candidate_log_likelihoods
+    from dbgphmm_tpu_torch.ops.forward import pad_reads
+    from dbgphmm_tpu_torch.ops.sparse import pad_mappings
+    from dbgphmm_tpu_torch.phmm.template import make_template
+
+    t0 = time.perf_counter()
+    ds = Dataset.from_json_file(json_path)
+    dbg = out.from_dbg_file(dbg_path)
+    reads = list(ds.reads)[:BATCH_READS]
+    codes, lens = pad_reads(reads)
+    maps = first_reads(dense_maps, len(reads))
+    map_nodes = pad_mappings(maps, codes.shape[1],
+                             max(a.shape[1] for a in maps.nodes))
+    tpl = make_template(dbg, params)
+    cands = batch_candidates(dbg)
+    models = [tpl.model_for(cn) for cn in cands]
+
+    def rel(got, want):
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    secs, errs, f64 = {}, {}, {}
+    for branch, kw in (("dense", {}), ("mapped", {"map_nodes": map_nodes})):
+        t1 = time.perf_counter()
+        got = candidate_log_likelihoods(models, codes, lens, device, **kw)
+        secs[branch] = time.perf_counter() - t1
+        f64[branch] = candidate_log_likelihoods(models, codes, lens, device,
+                                                dtype=torch.float64, **kw)
+        assert np.isfinite(got).all(), (branch, got)
+        errs[branch] = rel(got, f64[branch])
+        assert errs[branch] <= 1e-4, (branch, got, f64[branch])
+
+    # the entry point: sample_posterior without mappings scores through
+    # BatchScorer; count its calls and hold it to no kernel and no twin
+    batch_calls = []
+    real = TP.candidate_log_likelihoods
+
+    def counting(models, *a, **kw):
+        batch_calls.append(len(models))
+        return real(models, *a, **kw)
+
+    reset_counters()
+    t1 = time.perf_counter()
+    TP.candidate_log_likelihoods = counting
+    try:
+        post = TP.sample_posterior(dbg.copy(), params, reads, None,
+                                   ds.genome_size(), 100, device, max_iter=1)
+    finally:
+        TP.candidate_log_likelihoods = real
+    secs["sample_posterior"] = time.perf_counter() - t1
+    launches, twins = read_counters()
+    assert not any(launches.values()) and not any(twins.values()), (launches, twins)
+    assert batch_calls and max(batch_calls) <= TP.BatchScorer.SUB, batch_calls
+    lls = np.asarray([smp.score.likelihood for smp in post.samples])
+    assert np.isfinite(lls).all(), lls
+    draft = post.find(cands[0])
+    assert draft is not None
+    errs["sample_posterior_draft"] = rel(np.asarray([draft.score.likelihood]),
+                                         f64["dense"][:1])
+    assert errs["sample_posterior_draft"] <= 1e-4, errs
+
+    ref = cpu_reference_of(ref_proc, tmp, "batch")
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        table = cli.main(["table", "-d", str(dbg_path), str(reads_fa),
+                          "--device", device.type])
+    secs["table"] = time.perf_counter() - t1
+    assert table.dtype == torch.float64 and table.device.type == device.type
+    table = table.cpu().numpy()
+    assert table.shape == (len(ds.reads),) and np.isfinite(table).all()
+    errs["table_vs_cpu"] = rel(table[:1], ref["table"])
+    errs["table_vs_batch"] = rel(table[:len(reads)].sum(), f64["dense"][0])
+    assert max(errs["table_vs_cpu"], errs["table_vs_batch"]) <= 1e-9, (
+        table[:len(reads)], ref["table"], f64["dense"][0])
+    emit("batch", t0, reads=len(reads), table_reads=len(table),
+         candidates=len(cands), map_width=int(map_nodes.shape[2]),
+         posterior_candidates=len(post.samples), batch_calls=batch_calls,
+         seconds=secs, max_rel_diff=errs, cpu_f64_s=float(ref["seconds"]))
 
 
 def main():
@@ -895,21 +1278,48 @@ def main():
 
     device = torch.device("cuda")
     params = PHMMParams.uniform(0.001)  # the CLI's default --p-error
-    ds = Dataset.from_json_file(ROOT / "data/bench/data.json")
-    dbg = out.from_dbg_file(ROOT / "data/bench/data.dbg")
-    maps98 = phase_mapping(device, params, ds, dbg)
-    res = {}
-    res["K1"], ctx = phase_k1_parity(device, params, ds, dbg, maps98)
-    ctx["blocked"] = blocked_candidate(device, ctx)
-    res["K2"] = phase_parity("K2", device, params, dbg, ctx, ds.genome_size(),
-                             rescue_shape(device, params, ds, dbg, maps98))
-    res["K3"] = phase_parity("K3", device, params, dbg, ctx, ds.genome_size())
-    del ctx
-    phase_refine(params, ds, dbg, maps98)
-    spaces = phase_scorer_spaces(device, params, ds, dbg, maps98)
-    launches = {"K2": phase_inspect(device, ds, dbg),
-                "K3": spaces["linear"]["launches"]["K3"],
-                "K1": phase_infer()}
+    bench_json, bench_dbg = ROOT / "data/bench/data.json", ROOT / "data/bench/data.dbg"
+    ds = Dataset.from_json_file(bench_json)
+    dbg = out.from_dbg_file(bench_dbg)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_datasets(tmp)
+        ref_proc = start_cpu_reference(tmp)
+        try:
+            u = {name: (Path(tmp) / f"u{n}.json", Path(tmp) / f"u{n}.dbg")
+                 for name, n in U500.items()}
+            _, first = run_sim_infer("infer", bench_json, bench_dbg, 40, (40,))
+            maps98 = phase_mapping(params, ds, first)
+            del first
+            res = {}
+            res["K1"], ctx = phase_k1_parity(device, params, ds, dbg, maps98)
+            ctx["blocked"] = blocked_candidate(device, ctx)
+            res["K2"] = phase_parity("K2", device, params, dbg, ctx,
+                                     ds.genome_size(),
+                                     rescue_shape(device, params, ds, dbg, maps98))
+            res["K3"] = phase_parity("K3", device, params, dbg, ctx,
+                                     ds.genome_size())
+            del ctx
+            phase_refine(maps98, ref_proc, tmp)
+            spaces = phase_scorer_spaces(device, params, ds, dbg, maps98)
+            del maps98
+            launches = {"K2": phase_inspect(device, *u["dense"]),
+                        "K3": spaces["linear"]["launches"]["K3"]}
+            dense_maps = phase_decode("dense", device, params, *u["dense"],
+                                      ref_proc, tmp)
+            phase_batch(device, params, *u["dense"],
+                        Path(tmp) / f"u{U500['dense']}.reads.fa", dense_maps,
+                        ref_proc, tmp)
+            del dense_maps
+            phase_decode("adaptive", device, params, *u["adaptive"], ref_proc, tmp)
+            phase_decode("frontier", device, params, bench_json, bench_dbg,
+                         ref_proc, tmp, n_reads=FRONTIER_READS,
+                         env={"DBGPHMM_SEED_MAPPING": "0"})
+            launches["K1"], _ = run_sim_infer("small_infer", *u["adaptive"], 41,
+                                              (40, 41))
+        finally:
+            if ref_proc.poll() is None:
+                ref_proc.kill()
+            ref_proc.wait()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dbgphmm_tpu"))
     assert not foreign, f"the port imported {foreign[:5]}"
 
@@ -929,4 +1339,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-reference"]:
+        sys.path.insert(0, str(ROOT))
+        cpu_reference(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -1,27 +1,33 @@
 """dbgphmm_tpu_torch — the PyTorch / CUDA port of dbgphmm_tpu.
 
-A second package beside the JAX one.  It runs the seeded k-stage inference
-path (seeding, hint-constrained refine, candidate scoring, purge and
-extension) with PyTorch on one device: float64 on the CPU for parity with
-the JAX package, float32 on an NVIDIA Hopper GPU, where candidate scoring is
-the hand-written CUDA kernel ``csrc/mapped_scorer.cu``.
+A second package beside the JAX one.  It runs the whole single-device
+inference path (mapping decodes, hint-constrained refine, exact-match
+seeding, candidate scoring, purge and extension) with PyTorch on one
+device: float64 on the CPU for parity with the JAX package, float32 on an
+NVIDIA Hopper GPU, where candidate scoring is the hand-written CUDA
+kernels ``csrc/mapped_scorer.cu`` and ``csrc/mapped_scorer_linear.cu``.
 
 The host layers (sequences, k-mers, graphs, flow, seeding, neighbours,
 Euler counts, the PHMM model and template, read simulation, file formats)
 are the port's own copies of the JAX package's modules, under the same
 relative paths (``prob``, ``hist``, ``kmer``, ``hashdbg``, ``e2e``,
-``seq``, ``graph``, ``flow``, ``phmm``, ``multi_dbg``), and their native
-helpers are built from ``csrc/host/``.  This package imports ``torch``
-and never ``jax``, nor anything of ``dbgphmm_tpu``.
+``utils``, ``seq``, ``graph``, ``flow``, ``phmm``, ``multi_dbg``), and
+their native helpers are built from ``csrc/host/``.  This package imports
+``torch`` and never ``jax``, nor anything of ``dbgphmm_tpu``.
 
 Layers:
-  ops.forward        -- DeviceModel, padding, dtype policy
-  ops.sparse         -- slot positions (csrc/host/positions.cpp), active-set gathers
-  ops.adaptive       -- hint-constrained mapping refine
-  ops.mapped_scorer  -- streams, the K1 kernel wrapper, its twin, MappedScorer
+  ops.forward        -- DeviceModel, padding, dtype policy; the dense
+                        forward/backward and posterior decode
+  ops.freqs          -- transition and init usage expectations (Q score)
+  ops.sparse         -- slot positions (csrc/host/positions.cpp), the
+                        mapping-constrained forward
+  ops.adaptive       -- sparse-adaptive decode, hint-constrained refine
+  ops.batch          -- candidate-stacked likelihoods (batch scoring)
+  ops.mapped_scorer  -- streams, the K1/K2/K3 kernel wrappers, their twins,
+                        MappedScorer
   multi_dbg.posterior-- mappings, scoring, hill climb, k-extension loop
   multi_dbg.output   -- DBG / MAP / POST / GFA / INSPECT files on the port's types
-  cli                -- infer / sim-infer / euler / inspect / sample / sample-from-true
+  cli                -- the JAX CLI's commands, plus --device
 """
 
 __version__ = "0.1.0"

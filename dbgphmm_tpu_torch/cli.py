@@ -1,27 +1,34 @@
-"""Command-line interface of the port: ``infer``, ``sim-infer``, ``euler``,
-``inspect``, ``sample`` and ``sample-from-true``.
+"""Command-line interface of the port (ref: src/bin/dbgphmm.rs and the
+experiment binaries).
 
-Flags follow the JAX package's CLI (``dbgphmm_tpu/cli.py``), plus
-``--device`` (default ``cuda``).  A CUDA run needs a visible GPU: when
+Commands and flags follow the JAX package's CLI (``dbgphmm_tpu/cli.py``):
+``raw-dbg``, ``draft``, ``infer``, ``euler``, ``sim-draft``, ``sim-infer``,
+``sample``, ``mapping``, ``freq``, ``table``, ``edit-dist``,
+``modify-dbg``, ``inspect``, ``sample-from-true`` and ``extend-mapping``,
+and they write the same files.  The commands that run the PHMM take
+``--device`` (default ``cuda``): a CUDA run needs a visible GPU, and when
 ``torch.cuda.is_available()`` is False the command exits non-zero with a
 message; only an explicit ``--device cpu`` runs the float64 CPU path.
+The JAX CLI's ``--cpu``, ``--mesh`` and ``--dist`` (multi-device) and
+``speed-test`` (the bench) have no counterpart yet.
 
-    python -m dbgphmm_tpu_torch sim-infer data/bench/data.json \\
-        -d data/bench/data.dbg -o out/run -K 41 -I 1
-    python -m dbgphmm_tpu_torch infer -d draft.dbg -o out -K 10000 \\
+    python -m dbgphmm_tpu_torch sim-draft -k 40 --unit-size 500 --n-unit 8 \
+        --unit-seed 0 --div-init 0.02 --div-seed 1 --end-length 300 -P 2 \
+        --div-hap 0.02 --hap-seed 0 -C 15 -L 10000 -p 0.001 -o u500
+    python -m dbgphmm_tpu_torch sim-infer u500.json -d u500.dbg -o out/run \
+        -K 41 -I 1
+    python -m dbgphmm_tpu_torch infer -d draft.dbg -o out -K 10000 \
         -G 1000000 reads.fa
     python -m dbgphmm_tpu_torch euler -d out.final.dbg assembly.fa
-    python -m dbgphmm_tpu_torch inspect -d data/bench/data.dbg \\
+    python -m dbgphmm_tpu_torch inspect -d data/bench/data.dbg \
         data/bench/data.json -o out/inspect
-    python -m dbgphmm_tpu_torch sample -d draft.dbg -o out/s -G 87975 reads.fa
-    python -m dbgphmm_tpu_torch sample-from-true data.json -k 40 -o out/t
+    python -m dbgphmm_tpu_torch table -d draft.dbg reads.fa
 
-``inspect``, ``sample`` and ``sample-from-true`` map reads like ``infer``
-(seeded regime: graphs of more than 32,768 full edges; a smaller graph
-raises ``NotImplementedError``).
-
-Each k-stage prints one line ``# stage {json}`` with its time split
-(seeding, refine, scorer setup, scoring, host) and scorings per second.
+Mappings are decoded by the graph's size (``multi_dbg.posterior.
+generate_mappings``): dense up to 4,000 full edges, sparse-adaptive up to
+32,768, seeded beyond.  Each k-stage of ``infer`` / ``sim-infer`` prints
+one line ``# stage {json}`` with its time split (seeding, from-scratch
+decode, refine, scorer setup, scoring, host) and scorings per second.
 """
 
 from __future__ import annotations
@@ -123,6 +130,73 @@ def cmd_infer(args):
                 f"--map {args.map_input}: {mappings.n_reads()} mapped reads "
                 f"but {len(reads)} reads in {args.read_fasta}")
     return _run_inference(dbg, reads, args, device, mappings=mappings)
+
+
+def cmd_raw_dbg(args):
+    """(ref: bin/dbgphmm.rs RawDbg) Reads -> a raw k-mer DBG as GFA."""
+    from .hashdbg import HashDbg
+    from .seq.collection import ReadCollection
+
+    reads = ReadCollection.from_fasta(args.read_fasta)
+    hd = HashDbg.from_fragment_seqs(args.k, reads)
+    hd.remove_rare_kmers(args.min_count)
+    hd.remove_deadends(args.min_deadend_count)
+    hd.to_gfa_file(args.gfa_output)
+    print(f"# wrote {args.gfa_output} ({hd.n()} kmers)")
+
+
+def cmd_draft(args):
+    """(ref: bin/dbgphmm.rs Draft) Reads -> the draft DBG."""
+    from .multi_dbg import output as out
+    from .multi_dbg.draft import create_draft_from_reads
+    from .seq.collection import ReadCollection
+
+    reads = ReadCollection.from_fasta(args.read_fasta)
+    print(f"# n_reads={len(reads)}")
+    dbg = create_draft_from_reads(
+        args.k, reads, args.p_error, args.genome_size,
+        n_haplotypes=args.n_haplotypes,
+        min_count=args.min_count, min_deadend_count=args.min_deadend_count,
+    )
+    out.to_dbg_file(dbg, args.dbg_output)
+    print(f"# wrote {args.dbg_output} ({dbg})")
+    if args.gfa_output:
+        out.to_gfa_file(dbg, args.gfa_output)
+
+
+def cmd_sim_draft(args):
+    """(ref: bin/draft.rs) A synthetic dataset (tandem-repeat polyploid
+    genome, simulated reads) and, with ``-k``, its draft and true paths."""
+    from .e2e import ReadType, generate_dataset
+    from .multi_dbg import output as out
+    from .multi_dbg.draft import create_draft_from_dataset
+    from .phmm.params import PHMMParams
+    from .seq import genome as genome_gen
+
+    g = genome_gen.tandem_repeat_polyploid_with_unique_homo_ends(
+        args.unit_size, args.n_unit, args.unit_seed, args.div_init,
+        args.div_seed, args.end_length, args.ploidy, args.div_hap, args.hap_seed,
+    )
+    ds = generate_dataset(
+        g, args.read_seed, args.coverage, args.read_length,
+        ReadType.FRAGMENT_WITH_REVCOMP if args.fragment
+        else ReadType.FULL_LENGTH_WITH_REVCOMP,
+        PHMMParams.uniform(args.p_error),
+    )
+    prefix = str(args.output_prefix)
+    ds.write_files(prefix)
+    print(f"# dataset: {len(ds.reads)} reads {ds.coverage():.1f}x -> {prefix}.json")
+    if args.k:
+        dbg = create_draft_from_dataset(args.k, ds)
+        out.to_dbg_file(dbg, f"{prefix}.dbg")
+        try:
+            paths = dbg.paths_from_styled_seqs(ds.genome)
+            out.to_paths_file(paths, f"{prefix}.paths")
+            print(f"# draft contains true genome: wrote {prefix}.paths")
+        except Exception as e:
+            print(f"# true paths not in draft: {e}")
+        print(f"# wrote {prefix}.dbg ({dbg})")
+    return ds
 
 
 def cmd_euler(args):
@@ -232,6 +306,153 @@ def cmd_sample_from_true(args):
     return post
 
 
+def cmd_mapping(args):
+    """(ref: bin/mapping.rs) Per-read per-base mapping tables."""
+    from .multi_dbg import output as out
+    from .multi_dbg.posterior import generate_mappings
+    from .phmm.params import PHMMParams
+    from .seq.collection import ReadCollection
+
+    device = _resolve_device(args.device)
+    reads = ReadCollection.from_fasta(args.read_fasta)
+    dbg = out.from_dbg_file(args.dbg_input)
+    maps = generate_mappings(dbg, PHMMParams.uniform(args.p_error), reads,
+                             device, n_active=args.n_active)
+    out.to_map_file(dbg, args.map_output, reads, maps)
+    print(f"# wrote {args.map_output}")
+    return maps
+
+
+def cmd_freq(args):
+    """(ref: bin/freq.rs) Node usage frequencies of the reads on a DBG."""
+    from .multi_dbg import output as out
+    from .multi_dbg.posterior import generate_mappings
+    from .phmm.params import PHMMParams
+    from .seq.collection import ReadCollection
+
+    device = _resolve_device(args.device)
+    reads = ReadCollection.from_fasta(args.read_fasta)
+    dbg = out.from_dbg_file(args.dbg_input)
+    maps = generate_mappings(dbg, PHMMParams.uniform(args.p_error), reads, device)
+    freqs = maps.to_node_freqs(dbg.n_edges_full())
+    with open(args.output, "w") as f:
+        f.write("# edge_in_full\tkmer\tcopy_num\tfreq\n")
+        for e in range(dbg.n_edges_full()):
+            f.write(f"{e}\t{dbg.kmer_full(e).decode()}\t{dbg.copy_num(e)}"
+                    f"\t{freqs[e]:.4f}\n")
+    print(f"# wrote {args.output}")
+
+
+def cmd_table(args):
+    """(ref: bin/table.rs) Per-read log-likelihood table under a DBG: the
+    dense forward, in float64 on every device."""
+    from .multi_dbg import output as out
+    from .ops.forward import forward_scores, pad_reads, to_device
+    from .phmm.params import PHMMParams
+    from .seq.collection import ReadCollection
+
+    device = _resolve_device(args.device)
+    reads = ReadCollection.from_fasta(args.read_fasta)
+    dbg = out.from_dbg_file(args.dbg_input)
+    dm = to_device(dbg.to_phmm(PHMMParams.uniform(args.p_error)), device,
+                   torch.float64)
+    codes, lens = pad_reads(list(reads))
+    scores = forward_scores(dm, torch.as_tensor(codes, device=device),
+                            torch.as_tensor(lens, device=device), renorm=True)
+    total = 0.0
+    for i, s in enumerate(scores.cpu().tolist()):
+        print(f"read {i}\tlen={lens[i]}\tlogP={s:.4f}")
+        total += s
+    print(f"# total logP(R|X) = {total:.4f}")
+    return scores
+
+
+def cmd_edit_dist(args):
+    """(ref: bin/edit_dist.rs) Edit distances between two FASTAs' sorted
+    sequences."""
+    from .seq.io import parse_fasta
+    from .utils import edit_distance
+
+    a = sorted(seq for _n, _d, seq in parse_fasta(args.fasta_a))
+    b = sorted(seq for _n, _d, seq in parse_fasta(args.fasta_b))
+    print(f"# {len(a)} vs {len(b)} sequences")
+    for i, (x, y) in enumerate(zip(a, b)):
+        d = edit_distance(x, y)
+        print(f"pair {i}\tlen {len(x)} vs {len(y)}\tedit_dist={d}")
+
+
+def cmd_modify_dbg(args):
+    """(ref: bin/modify_dbg.rs) Apply an INSPECT sample's copy numbers."""
+    from .multi_dbg import output as out
+
+    dbg = out.from_dbg_file(args.dbg_input)
+    sample = out.parse_inspect_file(args.inspect)["samples"][args.sample_id]
+    dbg.set_copy_nums(sample["copy_nums"])
+    out.to_dbg_file(dbg, args.dbg_output)
+    print(f"# applied sample {args.sample_id} -> {args.dbg_output}")
+
+
+def cmd_extend_mapping(args):
+    """(ref: bin/extend_mapping.rs; posterior/test.rs:145-237) At each k:
+    carry the mapping across purge / k+1 extension, refine it, compare its
+    likelihood with a fresh mapping's (``candidate_log_likelihoods`` over
+    each mapping), and dump both as .map files."""
+    import numpy as np
+
+    from .e2e import Dataset
+    from .multi_dbg import output as out
+    from .multi_dbg.posterior import Mappings, generate_mappings
+    from .ops.batch import candidate_log_likelihoods
+    from .ops.forward import pad_reads
+    from .ops.sparse import pad_mappings
+    from .phmm.params import PHMMParams
+
+    device = _resolve_device(args.device)
+    ds = Dataset.from_json_file(args.dataset_json)
+    dbg = out.from_dbg_file(args.dbg_input)
+    params = PHMMParams.uniform(args.p_infer)
+    reads = ds.reads
+    paths = dbg.paths_from_styled_seqs(ds.genome)
+    mappings = generate_mappings(dbg, params, reads, device)
+    prefix = str(args.output_prefix)
+    codes, lens = pad_reads(list(reads))
+
+    def likelihood_with(mps):
+        mn = pad_mappings(mps, codes.shape[1], max(a.shape[1] for a in mps.nodes))
+        return float(candidate_log_likelihoods([dbg.to_phmm(params)], codes,
+                                               lens, device, map_nodes=mn)[0])
+
+    while dbg.k < args.k_max:
+        dbg.set_copy_nums(_true_compact_copy_nums(dbg, paths))
+        zero_edges = [e for e in range(dbg.n_edges_compact())
+                      if dbg.copy_num_of_edge_in_compact(e) == 0]
+        t0 = time.time()
+        dbg, paths, maps_ext = dbg.purge_and_extend(
+            zero_edges, args.k_max, True, paths, list(mappings.nodes))
+        t_extend = time.time() - t0
+        # refine the upconverted sets before scoring them and carrying them
+        # on (ref: posterior/test.rs:184-187); nan weights mark the raw
+        # upconversion as not a posterior
+        hint = Mappings(list(maps_ext), [np.full(a.shape, np.nan) for a in maps_ext],
+                        mappings.read_logps)
+        t0 = time.time()
+        mappings = generate_mappings(dbg, params, reads, device, hint=hint,
+                                     verbose=True)
+        t_refine = time.time() - t0
+        t0 = time.time()
+        mappings_true = generate_mappings(dbg, params, reads, device)
+        t_map = time.time() - t0
+
+        out.to_map_file(dbg, f"{prefix}.k{dbg.k}.extend.map", reads, mappings)
+        out.to_map_file(dbg, f"{prefix}.k{dbg.k}.true.map", reads, mappings_true)
+        out.to_dbg_file(dbg, f"{prefix}.k{dbg.k}.dbg")
+        out.to_gfa_file(dbg, f"{prefix}.k{dbg.k}.gfa")
+        print(f"k={dbg.k} p_extend={likelihood_with(mappings):.4f} "
+              f"p_true={likelihood_with(mappings_true):.4f} "
+              f"t_extend={t_extend * 1e3:.0f}ms t_refine={t_refine * 1e3:.0f}ms "
+              f"t_map={t_map * 1e3:.0f}ms")
+
+
 def cmd_sim_infer(args):
     """Inference against a dataset.json, with the truth diff (ref:
     bin/infer.rs)."""
@@ -280,6 +501,26 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device: cuda (default, float32 + the "
                              "CUDA kernels) or cpu (float64, plain PyTorch)")
 
+    rd = sub.add_parser("raw-dbg", help="construct raw DBG from reads -> GFA")
+    rd.add_argument("-k", type=int, required=True)
+    rd.add_argument("-m", "--min-count", type=int, default=2)
+    rd.add_argument("-M", "--min-deadend-count", type=int, required=True)
+    rd.add_argument("read_fasta")
+    rd.add_argument("-g", "--gfa-output", required=True)
+    rd.set_defaults(fn=cmd_raw_dbg)
+
+    d = sub.add_parser("draft", help="construct draft DBG from reads")
+    d.add_argument("-k", type=int, required=True)
+    d.add_argument("-m", "--min-count", type=int, default=2)
+    d.add_argument("-M", "--min-deadend-count", type=int, required=True)
+    d.add_argument("-p", "--p-error", type=float, default=0.001)
+    d.add_argument("-G", "--genome-size", type=int, required=True)
+    d.add_argument("-P", "--n-haplotypes", type=int, default=None)
+    d.add_argument("read_fasta")
+    d.add_argument("-d", "--dbg-output", required=True)
+    d.add_argument("-g", "--gfa-output", default=None)
+    d.set_defaults(fn=cmd_draft)
+
     inf = sub.add_parser("infer", help="posterior inference k0 -> K")
     inf.add_argument("-d", "--dbg-input", required=True)
     inf.add_argument("--map", dest="map_input", default=None,
@@ -301,6 +542,25 @@ def build_parser() -> argparse.ArgumentParser:
     eu.add_argument("-d", "--dbg", required=True)
     eu.add_argument("fasta_out")
     eu.set_defaults(fn=cmd_euler)
+
+    sd = sub.add_parser("sim-draft", help="generate synthetic dataset (+ draft)")
+    sd.add_argument("-k", type=int, default=None)
+    sd.add_argument("--unit-size", type=int, default=20)
+    sd.add_argument("--n-unit", type=int, default=20)
+    sd.add_argument("--unit-seed", type=int, default=0)
+    sd.add_argument("--div-init", type=float, default=0.0)
+    sd.add_argument("--div-seed", type=int, default=0)
+    sd.add_argument("--end-length", type=int, default=100)
+    sd.add_argument("--ploidy", "-P", type=int, default=2)
+    sd.add_argument("--div-hap", type=float, default=0.02)
+    sd.add_argument("--hap-seed", type=int, default=0)
+    sd.add_argument("--read-seed", type=int, default=0)
+    sd.add_argument("-C", "--coverage", type=int, default=10)
+    sd.add_argument("-L", "--read-length", type=int, default=1000)
+    sd.add_argument("-p", "--p-error", type=float, default=0.001)
+    sd.add_argument("--fragment", action="store_true")
+    sd.add_argument("-o", "--output-prefix", required=True)
+    sd.set_defaults(fn=cmd_sim_draft)
 
     si = sub.add_parser("sim-infer", help="inference against dataset.json")
     si.add_argument("dataset_json")
@@ -330,6 +590,42 @@ def build_parser() -> argparse.ArgumentParser:
     device_flag(sp)
     sp.set_defaults(fn=cmd_sample)
 
+    mp = sub.add_parser("mapping", help="dump per-read mapping tables")
+    mp.add_argument("-d", "--dbg-input", required=True)
+    mp.add_argument("-p", "--p-error", type=float, default=0.001)
+    mp.add_argument("-n", "--n-active", type=int, default=40)
+    mp.add_argument("read_fasta")
+    mp.add_argument("-o", "--map-output", required=True)
+    device_flag(mp)
+    mp.set_defaults(fn=cmd_mapping)
+
+    fr = sub.add_parser("freq", help="node usage frequencies")
+    fr.add_argument("-d", "--dbg-input", required=True)
+    fr.add_argument("-p", "--p-error", type=float, default=0.001)
+    fr.add_argument("read_fasta")
+    fr.add_argument("-o", "--output", required=True)
+    device_flag(fr)
+    fr.set_defaults(fn=cmd_freq)
+
+    tb = sub.add_parser("table", help="per-read likelihood table")
+    tb.add_argument("-d", "--dbg-input", required=True)
+    tb.add_argument("-p", "--p-error", type=float, default=0.001)
+    tb.add_argument("read_fasta")
+    device_flag(tb)
+    tb.set_defaults(fn=cmd_table)
+
+    ed = sub.add_parser("edit-dist", help="edit distance between FASTAs")
+    ed.add_argument("fasta_a")
+    ed.add_argument("fasta_b")
+    ed.set_defaults(fn=cmd_edit_dist)
+
+    md = sub.add_parser("modify-dbg", help="apply INSPECT sample copy numbers")
+    md.add_argument("-d", "--dbg-input", required=True)
+    md.add_argument("--inspect", required=True)
+    md.add_argument("--sample-id", type=int, default=0)
+    md.add_argument("-o", "--dbg-output", required=True)
+    md.set_defaults(fn=cmd_modify_dbg)
+
     ins = sub.add_parser(
         "inspect", help="re-score current vs true copy numbers on a dataset")
     ins.add_argument("-d", "--dbg", required=True)
@@ -348,13 +644,25 @@ def build_parser() -> argparse.ArgumentParser:
     sft.add_argument("-o", "--output-prefix", required=True)
     device_flag(sft)
     sft.set_defaults(fn=cmd_sample_from_true)
+
+    em = sub.add_parser(
+        "extend-mapping",
+        help="compare mapping upconversion across k vs fresh mapping")
+    em.add_argument("dataset_json")
+    em.add_argument("-d", "--dbg-input", required=True)
+    em.add_argument("-K", "--k-max", type=int, required=True)
+    em.add_argument("-p", "--p-infer", type=float, default=0.001)
+    em.add_argument("-o", "--output-prefix", required=True)
+    device_flag(em)
+    em.set_defaults(fn=cmd_extend_mapping)
     return p
 
 
 def main(argv=None):
     """Parse ``argv`` and run the command; returns the command's result
     (infer / sim-infer: (dbg, posterior, per-stage times); inspect: the two
-    Scores; sample / sample-from-true: the Posterior)."""
+    Scores; sample / sample-from-true: the Posterior; sim-draft: the
+    Dataset; mapping: the Mappings; table: the per-read scores)."""
     args = build_parser().parse_args(argv)
     t0 = time.time()
     print(f"# started_at={time.strftime('%Y-%m-%d %H:%M:%S')}")

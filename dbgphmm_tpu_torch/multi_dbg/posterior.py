@@ -1,38 +1,41 @@
-"""Bayesian posterior sampling over copy-number assignments, seeded regime
+"""Bayesian posterior sampling over copy-number assignments
 (ref: src/multi_dbg/posterior.rs).
 
 PyTorch counterpart of ``dbgphmm_tpu/multi_dbg/posterior.py``.  The score
 of an assignment X is ``P(X|R) ∝ P(R|X) · P(G) · #EulerCircuits(X)``: the
 read likelihoods come from :class:`~dbgphmm_tpu_torch.ops.mapped_scorer.
-MappedScorer` (a CUDA kernel on a GPU, its float64 twin on the CPU), the
-prior and the Euler count from the port's copies of the host layers.
+MappedScorer` over the reads' mappings (a CUDA kernel on a GPU, its
+float64 twin on the CPU) or, without mappings, from the dense forward of
+``ops.batch.candidate_log_likelihoods``; the prior and the Euler count
+come from the port's copies of the host layers.
 
-What is ported: mapping generation by exact-match seeding plus the
-hint-constrained refine (graphs of more than ``DENSE_COMPUTE_MAX_NODES``
-full edges, or any graph given a ``hint``), candidate scoring in the
-scorer's three spaces with the linear-to-log rescue, the greedy hill
-climb, purge + extension, and the k-extension loop.  What is not: the
-dense and sparse-adaptive from-scratch decodes that serve smaller graphs
-(ROADMAP 'Modules to port', items 7 and 8) — such a call raises
-``NotImplementedError`` instead of taking another route — and the
+Mappings are decoded from scratch by the graph's size: the dense
+posterior decode up to ``DENSE_MAPPING_MAX_NODES`` full edges, the
+dense-compute / compact-store sparse-adaptive decode up to
+``DENSE_COMPUTE_MAX_NODES``, and beyond that exact-match seeding plus the
+refine (or, with ``DBGPHMM_SEED_MAPPING=0``, the evolving-frontier
+decode); with a ``hint`` the decode is the hint-constrained refine.  The
 TPU-specific crash/revival machinery and the XLA fallback scorer of the
-JAX module.
+JAX module have no counterpart.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..graph.euler import EulerCache
 from ..hist import DiscreteDistribution
-from ..ops.adaptive import mappings_refine
-from ..ops.forward import default_dtype, pad_reads, to_device
+from ..ops.adaptive import mappings_refine, mappings_sparse_adaptive
+from ..ops.batch import candidate_log_likelihoods
+from ..ops.forward import (bucketize, default_dtype, node_freqs_and_mappings,
+                           pad_reads, to_device)
 from ..ops.mapped_scorer import MappedScorer
 from ..ops.sparse import pad_mappings, precompute_positions
 from ..phmm.params import PHMMParams
@@ -50,18 +53,40 @@ from .neighbors import (
 )
 from .seed import seed_mappings_arrays
 
-DENSE_MAPPING_MAX_NODES = 4000  # dense decode up to here (not ported yet)
-DENSE_COMPUTE_MAX_NODES = 32768  # beyond this, mappings come from seeding
+DENSE_MAPPING_MAX_NODES = 4000  # the dense decode up to here
+DENSE_COMPUTE_MAX_NODES = 32768  # the dense-compute / compact-store
+# sparse-adaptive decode up to here (the frontier of a top-64 evolving set
+# loses true cells at small k on repeats, see the JAX module); beyond it
+# mappings come from seeding
 MAPPING_WIDTH_CAP = 128  # fixed-shape cap on mapping slots (score-ratio
 # selected below it; ref table.rs:22 MAX_ACTIVE_NODES)
-MAPPING_READ_CHUNK = 160  # the refine stores [L, B, A] tables; chunk reads
+ADAPTIVE_FRONTIER_TOP = 64  # top-K frontier cap of the evolving-frontier
+# decode (ref n_active_nodes=40, params.rs:116)
+MAPPING_READ_CHUNK = 160  # decodes store [L, B, *] tables; chunk reads
+FRONTIER_READ_CHUNK = 384  # the frontier decode stores [L, B, K<=128]
+# bfloat16 tables, so its chunk can be bigger
+DENSE_TABLE_SHARE = 0.5  # of the free device memory, for the dense
+# decode's forward tables (3 x [L, B, n])
 
-NOT_PORTED_DECODE = (
-    "from-scratch mapping decode of a graph with at most "
-    "DENSE_COMPUTE_MAX_NODES full edges: the dense and sparse-adaptive "
-    "decodes are not ported yet (ROADMAP 'Modules to port', items 7 and 8); "
-    "pass a hint (e.g. seeded mappings) instead"
-)
+
+def seeded_mapping_enabled() -> bool:
+    """Exact-match seeded mapping for graphs of more than
+    DENSE_COMPUTE_MAX_NODES full edges (multi_dbg.seed).  On by default;
+    ``DBGPHMM_SEED_MAPPING=0`` decodes them with the evolving frontier."""
+    return os.environ.get("DBGPHMM_SEED_MAPPING", "1") != "0"
+
+
+def _dense_read_chunk(n_nodes: int, L: int, device, dtype) -> Tuple[Optional[int], int]:
+    """(reads per chunk, bytes of forward tables per read) of the dense
+    decode of a graph of ``n_nodes`` full edges on reads padded to L: the
+    tables of a chunk take at most DENSE_TABLE_SHARE of the device's free
+    memory (``torch.cuda.mem_get_info``).  No limit (None) off CUDA."""
+    device = torch.device(device)
+    per_read = 3 * L * bucketize(n_nodes) * torch.finfo(dtype).bits // 8
+    if device.type != "cuda":
+        return None, per_read
+    free, _total = torch.cuda.mem_get_info(device)
+    return max(1, int(free * DENSE_TABLE_SHARE) // max(per_read, 1)), per_read
 
 
 # -- per-stage timing ---------------------------------------------------------
@@ -74,6 +99,7 @@ class StageTimes:
 
     k: int
     seed_s: float = 0.0  # seed_mappings_arrays (host)
+    decode_s: float = 0.0  # from-scratch decodes (device) incl. transfers
     refine_s: float = 0.0  # mappings_refine (device) incl. transfers
     setup_s: float = 0.0  # template, positions, scorer streams
     score_s: float = 0.0  # read likelihoods of candidates (device)
@@ -83,8 +109,8 @@ class StageTimes:
 
     def as_dict(self) -> dict:
         d = dict(self.__dict__)
-        d["host_s"] = self.wall_s - (self.seed_s + self.refine_s + self.setup_s
-                                     + self.score_s)
+        d["host_s"] = self.wall_s - (self.seed_s + self.decode_s + self.refine_s
+                                     + self.setup_s + self.score_s)
         d["scorings_per_s"] = (self.n_scorings / self.score_s
                                if self.score_s > 0 else 0.0)
         return d
@@ -180,23 +206,29 @@ def generate_mappings(
     """Per-base active nodes by score ratio under a top-k cap
     (ref: posterior.rs:609-637 generate_mappings; hint.rs:193-220).
 
-    Without ``hint``, a graph of more than DENSE_COMPUTE_MAX_NODES full
-    edges is seeded by exact k-mer suffix matching (multi_dbg.seed) and the
-    seeds are refined; smaller graphs raise ``NotImplementedError``.  With
-    ``hint``, the decode is restricted to the hint's per-base sets
-    (``mappings_refine``) and gated: a read whose constrained likelihood is
-    non-finite, below ~-5 nats/base, or more than ``hint_gate`` nats below
-    its previous / anchor likelihood is regenerated from scratch (or, with
-    ``hint_regen=False``, kept and reported)."""
+    Without ``hint`` the decode runs from scratch on the non-zero PHMM: the
+    dense forward/backward up to DENSE_MAPPING_MAX_NODES full edges (its
+    read chunk cut so that the forward tables fit the device), the
+    dense-compute / compact-store sparse-adaptive decode up to
+    DENSE_COMPUTE_MAX_NODES, and beyond that exact k-mer suffix seeding
+    (multi_dbg.seed) refined as a hint, or, when
+    :func:`seeded_mapping_enabled` is false, the evolving-frontier decode.
+    A from-scratch result is its own anchor.  With ``hint``, the decode is
+    restricted to the hint's per-base sets (``mappings_refine``) and gated:
+    a read whose constrained likelihood is non-finite, below ~-5
+    nats/base, or more than ``hint_gate`` nats below its previous / anchor
+    likelihood is regenerated from scratch (or, with ``hint_regen=False``,
+    kept and reported)."""
     device = torch.device(device)
     if dtype is None:
         dtype = default_dtype(device)
     if max_ratio == "default":
         max_ratio = params.active_node_max_ratio
+    n = dbg.n_edges_full()
 
-    if hint is None:
-        if dbg.n_edges_full() <= DENSE_COMPUTE_MAX_NODES:
-            raise NotImplementedError(NOT_PORTED_DECODE)
+    if hint is None and n > DENSE_COMPUTE_MAX_NODES and seeded_mapping_enabled():
+        # graph-exact seeding + the constrained refine; hint_regen=False
+        # because re-decoding a read from scratch would seed it again
         t0 = time.perf_counter()
         arrs = seed_mappings_arrays(dbg, reads, verbose=True)
         if times is not None:
@@ -209,13 +241,26 @@ def generate_mappings(
             hint_regen=False, times=times,
         )
 
+    if read_chunk == MAPPING_READ_CHUNK and hint is None \
+            and n > DENSE_COMPUTE_MAX_NODES:
+        read_chunk = FRONTIER_READ_CHUNK  # compact bfloat16 tables
+    if read_chunk and hint is None and n <= DENSE_MAPPING_MAX_NODES:
+        L = pad_to or max(len(r) for r in reads)
+        fit, per_read = _dense_read_chunk(n, L, device, dtype)
+        if fit is not None:
+            read_chunk = min(read_chunk, fit)
+            b = min(read_chunk, len(reads))
+            print(f"[mappings] dense decode: read chunk {read_chunk} "
+                  f"({b} of {len(reads)} reads per pass), forward tables "
+                  f"{b * per_read / 1e9:.3f} GB per pass")
     if read_chunk and len(reads) > read_chunk:
+        # a shared pad_to keeps every chunk at the same read length
         reads_l = list(reads)
         L_max = max(len(r) for r in reads_l)
         parts = []
         for c0 in range(0, len(reads_l), read_chunk):
             sl = slice(c0, c0 + read_chunk)
-            sub_hint = Mappings(
+            sub_hint = None if hint is None else Mappings(
                 hint.nodes[sl], hint.logps[sl],
                 None if hint.read_logps is None else hint.read_logps[sl],
                 None if hint.anchor_logps is None else hint.anchor_logps[sl],
@@ -240,22 +285,54 @@ def generate_mappings(
     dm = to_device(model, device, dtype)
     codes, lens = pad_reads(list(reads), pad_to=pad_to)
     n_reads = codes.shape[0]
-    hint_arr = _pad_hint_nodes(hint, codes.shape[1], 2 * n_active)
     on_dev = lambda a: torch.as_tensor(a, device=device)
-    logp, map_nodes, map_logp = mappings_refine(
-        dm, on_dev(codes), on_dev(lens), on_dev(hint_arr),
-        n_active=n_active, max_ratio=max_ratio,
-    )
+    codes_d, lens_d = on_dev(codes), on_dev(lens)
+    if hint is not None:
+        hint_arr = _pad_hint_nodes(hint, codes.shape[1], 2 * n_active)
+        logp, map_nodes, map_logp = mappings_refine(
+            dm, codes_d, lens_d, on_dev(hint_arr),
+            n_active=n_active, max_ratio=max_ratio,
+        )
+    elif n <= DENSE_MAPPING_MAX_NODES:
+        logp, _freqs, map_nodes, map_logp = node_freqs_and_mappings(
+            dm, codes_d, lens_d, renorm=True, n_active=n_active,
+            max_ratio=max_ratio,
+        )
+    else:
+        stored_k, store_bf16 = None, False
+        if n <= DENSE_COMPUTE_MAX_NODES:
+            # dense compute, ~256 stored cells (n_top * (D + 1))
+            D = int(dm.parent_idx.shape[1])
+            n_top, n_warmup = max(40, 256 // (D + 1)), int(codes.shape[1])
+        else:
+            # the frontier: stored tables trimmed to the decode's width,
+            # in bfloat16 when computing in float32
+            n_top, n_warmup = max(ADAPTIVE_FRONTIER_TOP, -(-n_active // 2)), 16
+            stored_k = max(n_active, ADAPTIVE_FRONTIER_TOP)
+            store_bf16 = dtype == torch.float32
+        logp, map_nodes, map_logp = mappings_sparse_adaptive(
+            dm, codes_d, lens_d, n_top=n_top, n_active=n_active,
+            max_ratio=max_ratio, n_warmup=n_warmup, stored_k=stored_k,
+            store_bf16=store_bf16,
+        )
     read_logps = logp.to("cpu", torch.float64).numpy()[:n_reads]
     mn = map_nodes.cpu().numpy()[:n_reads]
     ml = map_logp.cpu().numpy()[:n_reads]
     if times is not None:
-        times.refine_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if hint is None:
+            times.decode_s += dt
+        else:
+            times.refine_s += dt
     mn, ml = _trim_mapping_width(mn, ml)
     nodes, logps = [], []
     for i, L in enumerate(lens):
         nodes.append(mn[i, :L].copy())
         logps.append(ml[i, :L].copy())
+
+    if hint is None:
+        # a from-scratch decode is the anchor of later hint stages
+        return Mappings(nodes, logps, read_logps, read_logps.copy(), 0)
 
     # acceptance gate: per-stage drop vs the previous constrained value and
     # total drop vs the last from-scratch decode (anchor), plus an absolute
@@ -419,17 +496,45 @@ def make_scorer(template, positions, codes, lens, params, device,
                         space=space)
 
 
+class BatchScorer:
+    """The scorer of :func:`sample_posterior` without mappings: each
+    candidate's model from the template, scored by
+    ``candidate_log_likelihoods`` (the dense forward, candidates stacked)
+    in sub-batches of ``SUB`` candidates (ref: the JAX package's
+    ``score_candidates`` fallback, without its crash ladder).  A log-space
+    -inf is exact, so nothing is rescored."""
+
+    space = "dense"
+    SUB = 32
+
+    def __init__(self, template, codes: np.ndarray, lens: np.ndarray, device):
+        self.template, self.codes, self.lens = template, codes, lens
+        self.device = torch.device(device)
+        self.n_reads = codes.shape[0]
+
+    def scores_detailed(self, candidates) -> Tuple[np.ndarray, np.ndarray]:
+        """(sums [C], ok [C]): total log P(R | X_c), and whether it is
+        finite."""
+        lls = np.empty(len(candidates), dtype=np.float64)
+        for c0 in range(0, len(candidates), self.SUB):
+            chunk = candidates[c0:c0 + self.SUB]
+            lls[c0:c0 + len(chunk)] = candidate_log_likelihoods(
+                [self.template.model_for(cn) for cn in chunk], self.codes,
+                self.lens, self.device)
+        return lls, np.isfinite(lls)
+
+
 def score_candidates(
     dbg: MultiDbg,
     candidates: List[List[int]],
     genome_size_expected: int,
     genome_size_sigma: int,
-    scorer: MappedScorer,
+    scorer,
     times: Optional[StageTimes] = None,
 ) -> List[Score]:
     """Score a batch of copy-number candidates: read likelihoods from the
-    scorer (one call for the whole batch), prior and incremental Euler
-    counts on the host.
+    scorer (a :class:`MappedScorer`, one call for the whole batch, or a
+    :class:`BatchScorer`), prior and incremental Euler counts on the host.
 
     A linear-space scorer underflows to -inf on reads forced across copy-0
     edges; every candidate it flags is rescored by its log-space sibling,
@@ -477,7 +582,7 @@ def sample_posterior(
     dbg: MultiDbg,
     params: PHMMParams,
     reads,
-    mappings: Mappings,
+    mappings: Optional[Mappings],
     genome_size_expected: int,
     genome_size_sigma: int,
     device,
@@ -490,12 +595,10 @@ def sample_posterior(
 ) -> Posterior:
     """Greedy hill climb from the DBG's copy numbers: score rescue (and,
     with ``rescue_only=False``, short/long/reducer) neighbours, move to the
-    best, repeat up to ``max_iter`` moves.  ``scorer_space`` picks the
-    scorer's kernel (:func:`make_scorer`)."""
-    if mappings is None:
-        raise NotImplementedError(
-            "scoring without mappings (batch scoring, ROADMAP 'Modules to "
-            "port' item 9) is not ported yet")
+    best, repeat up to ``max_iter`` moves.  With ``mappings`` the scorer is
+    a :class:`MappedScorer` whose kernel ``scorer_space`` picks
+    (:func:`make_scorer`); without, a :class:`BatchScorer` (the dense
+    forward; rescue neighbours then see uniform node freqs)."""
     device = torch.device(device)
     if neighbor_config is None:
         neighbor_config = NeighborConfig()
@@ -508,31 +611,37 @@ def sample_posterior(
     t0 = time.perf_counter()
     codes, lens = pad_reads(list(reads))
     template = make_template(dbg, params)
-    freqs = mappings.to_node_freqs(dbg.n_edges_full())
-    width = max((n.shape[1] for n in mappings.nodes if n.size), default=8)
-    map_nodes = pad_mappings(mappings, codes.shape[1], width)
-    # a read with an entirely empty mapping scores -inf under every
-    # candidate and carries no signal: drop it from scoring
-    alive = (map_nodes >= 0).any(axis=(1, 2))
-    if not alive.all():
-        dead = np.flatnonzero(~alive)
-        print(f"[posterior] excluding {len(dead)} read(s) with empty "
-              f"mappings from scoring: {dead.tolist()}")
-        keep = np.flatnonzero(alive)
-        codes, lens = codes[keep], lens[keep]
-        map_nodes = map_nodes[keep]
-        reads = [reads[int(i)] for i in keep]
-    positions = precompute_positions(
-        map_nodes, template.parent_idx, parent_exists=template.parent_exists
-    )
-    scorer = make_scorer(template, positions, codes, lens, template.params,
-                         device, space=scorer_space)
+    if mappings is None:
+        freqs = np.ones(dbg.n_edges_full())
+        scorer = BatchScorer(template, codes, lens, device)
+        what = "dense batch scorer"
+    else:
+        freqs = mappings.to_node_freqs(dbg.n_edges_full())
+        width = max((n.shape[1] for n in mappings.nodes if n.size), default=8)
+        map_nodes = pad_mappings(mappings, codes.shape[1], width)
+        # a read with an entirely empty mapping scores -inf under every
+        # candidate and carries no signal: drop it from scoring
+        alive = (map_nodes >= 0).any(axis=(1, 2))
+        if not alive.all():
+            dead = np.flatnonzero(~alive)
+            print(f"[posterior] excluding {len(dead)} read(s) with empty "
+                  f"mappings from scoring: {dead.tolist()}")
+            keep = np.flatnonzero(alive)
+            codes, lens = codes[keep], lens[keep]
+            map_nodes = map_nodes[keep]
+            reads = [reads[int(i)] for i in keep]
+        positions = precompute_positions(
+            map_nodes, template.parent_idx, parent_exists=template.parent_exists
+        )
+        scorer = make_scorer(template, positions, codes, lens, template.params,
+                             device, space=scorer_space)
+        what = f"positions and scorer streams (width={width}, " \
+               f"{len(scorer.chunks)} read chunk(s))"
     _sync(device)
     t_setup = time.perf_counter() - t0
     if times is not None:
         times.setup_s += t_setup
-    log(f"setup: template, positions and scorer streams {t_setup:.1f}s "
-        f"(width={width}, {len(scorer.chunks)} read chunk(s))")
+    log(f"setup: template, {what} {t_setup:.1f}s")
     coverage = sum(len(r) for r in reads) / genome_size_expected
 
     def score(cands):
@@ -748,7 +857,8 @@ def infer_posterior_by_extension(
         times = close_stage(dbg.k)
         t0 = time.perf_counter()
         hint_m = None
-        if dbg.n_edges_full() > DENSE_COMPUTE_MAX_NODES:
+        if (dbg.n_edges_full() > DENSE_COMPUTE_MAX_NODES
+                and seeded_mapping_enabled()):
             # seeded regime: seeding each stage beats upconverting the
             # previous stage's sets, so the hint is not carried
             maps2 = None

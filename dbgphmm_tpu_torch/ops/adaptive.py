@@ -1,28 +1,41 @@
-"""Hint-constrained mapping refine: forward over the hint's active sets,
-backward-by-forward, score-ratio decode.
+"""Sparse-adaptive mapping decode and the hint-constrained refine:
+forward over evolving (or given) active sets, backward-by-forward,
+score-ratio decode.
 
-PyTorch counterpart of the refine half of ``dbgphmm_tpu/ops/adaptive.py``
-(``_pack_model`` :31, ``_attr_cols`` :57, ``_gather_attrs`` :67,
-``_s_step_attrs`` :173, ``_b_step_sparse`` :389,
-``_decode_mappings_from_forward`` :457, ``forward_mapped_tables`` :599,
-``mappings_refine`` :638).  The JAX versions are XLA scans, not Pallas
-kernels; here each ``lax.scan`` is a Python loop over read positions and
-``lax.top_k`` is a stable descending sort (ties keep the lower index first,
-as ``lax.top_k`` does).  The stored forward tables are ``[L, B, A]``.
+PyTorch counterpart of ``dbgphmm_tpu/ops/adaptive.py``.  The JAX versions
+are XLA scans, not Pallas kernels; here each ``lax.scan`` is a Python loop
+over read positions and ``lax.top_k`` the stable descending sort
+``forward._top_k`` (ties keep the lower index first).  The stored forward
+tables are ``[L, B, K]``.
 
-The evolving-frontier decode of that module (``forward_sparse_adaptive``,
-``mappings_sparse_adaptive``) is not ported yet (ROADMAP 'Modules to
-port', item 8).
+* ``mappings_sparse_adaptive`` (ref: freq.rs:60 run_sparse_adaptive): the
+  active set of a position is the top ``n_top`` nodes of the previous
+  table plus their children (ref: forward.rs:148), so the decode costs
+  O(B * L * A) with A = n_top * (D + 1), whatever the graph's size.  The
+  first ``n_warmup`` positions run dense and compact to the top-A cells;
+  with ``n_warmup = L`` the whole forward is dense and only the stored
+  tables are compact (the decode of graphs of 4,000-32,768 full edges).
+  ``stored_k`` / ``store_bf16`` trim the stored tables to their top cells
+  and store them in bfloat16; the read likelihood comes from the carry.
+* ``mappings_refine`` (ref: hint.rs:206-216 run_with_mapping): the same
+  backward-by-forward decode over a hint's per-position active sets.
+
+The JAX package reads the frontier's children through a one-hot matrix
+product (``_onehot_slot_dot``, the TPU's way around slot gathers, with a
+finite stand-in for -inf); here they are read with ``torch.gather`` and a
+child is kept where its log transition probability is finite.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from .forward import NEG, DeviceModel, _ladd, _ladd3, _ratio_mask
-from .sparse import SState, _gather_prev, _gather_self, _lse_last
+from .forward import (NEG, DeviceModel, _f_init, _f_step, _kahan, _ladd,
+                      _ladd3, _lse_deg, _max_shift, _put_last, _ratio_mask,
+                      _reverse_codes, _s_log, _scatter_positions, _top_k)
+from .sparse import SState, _gather_prev, _gather_self, _s_core, _s_init
 
 
 def _pack_model(dm: DeviceModel) -> torch.Tensor:
@@ -54,91 +67,182 @@ def _gather_attrs(pk: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
     return pk[torch.where(nodes >= 0, nodes, 0).long()]
 
 
-def _neg_like(x: torch.Tensor) -> torch.Tensor:
-    return torch.full_like(x, NEG)
-
-
-def _renorm(m, i, d, off, off_c, valid):
-    """Subtract the per-read max of m (Kahan-accumulated into off)."""
-    shift = m.amax(dim=-1)
-    shift = torch.where(torch.isfinite(shift) & valid, shift,
-                        torch.zeros_like(shift))
-    m, i, d = m - shift[:, None], i - shift[:, None], d - shift[:, None]
-    y = shift - off_c
-    t = off + y
-    off_c = (t - off) - y
-    return m, i, d, shift, t, off_c
-
-
 def _s_step_attrs(dm: DeviceModel, st: SState, cur_nodes: torch.Tensor,
                   attrs: torch.Tensor, x: torch.Tensor,
                   valid: torch.Tensor) -> SState:
     """One mapping-constrained forward step (ref: forward.rs:276-306) with
-    the per-node attributes from one packed gather."""
-    lt = dm.lt
-    D = dm.parent_idx.shape[1]
-    c = _attr_cols(D)
+    the per-node attributes from one packed gather (renormalised)."""
+    c = _attr_cols(dm.parent_idx.shape[1])
     slot_ok = cur_nodes >= 0
     par_idx = attrs[..., c["pidx"]].to(torch.int32)
     par_logt = torch.where(slot_ok[:, :, None], attrs[..., c["plogt"]], NEG)
     init_lp = torch.where(slot_ok, attrs[..., c["init"]], NEG)
     emis = attrs[..., c["emis"]].to(torch.int32)
-    p_emit = torch.where(emis == x[:, None], lt.match, lt.mismatch)
-
-    pre_m = _ladd3(lt.MM + st.m, lt.IM + st.i, lt.DM + st.d)
-    inner = _gather_prev(par_idx, st.nodes, pre_m)
-    from_normal = _lse_last(par_logt + inner)
-    from_begin = init_lp + _ladd(lt.MM + st.mb, lt.IM + st.ib)[:, None]
-    m_new = p_emit + _ladd(from_normal, from_begin)
-
-    pre_i = _ladd3(lt.MI + st.m, lt.II + st.i, lt.DI + st.d)
-    i_new = lt.random + _gather_self(cur_nodes, st.nodes, pre_i)
-
-    mb_new = _neg_like(st.mb)
-    ib_new = lt.random + _ladd(lt.MI + st.mb, lt.II + st.ib)
-
-    pre_d = _ladd(lt.MD + m_new, lt.ID + i_new)
-    fd0 = _lse_last(par_logt + _gather_prev(par_idx, cur_nodes, pre_d))
-    fd0 = _ladd(fd0, init_lp + _ladd(lt.MD + mb_new, lt.ID + ib_new)[:, None])
-    d_new = fd0
-    fdt = fd0
-    for _ in range(dm.n_max_gaps):
-        fdt = _lse_last(par_logt + lt.DD + _gather_prev(par_idx, cur_nodes, fdt))
-        d_new = _ladd(d_new, fdt)
-
-    m_new = torch.where(slot_ok, m_new, NEG)
-    i_new = torch.where(slot_ok, i_new, NEG)
-    d_new = torch.where(slot_ok, d_new, NEG)
-
-    e_new = lt.end + _lse_last(_ladd3(m_new, i_new, d_new))
-
-    m_new, i_new, d_new, shift, off, off_c = _renorm(
-        m_new, i_new, d_new, st.off, st.off_c, valid)
-    mb_new = mb_new - shift
-    ib_new = ib_new - shift
-    e_new = e_new - shift
-
-    v1 = valid[:, None]
-    return SState(
-        nodes=torch.where(v1, cur_nodes, st.nodes),
-        m=torch.where(v1, m_new, st.m),
-        i=torch.where(v1, i_new, st.i),
-        d=torch.where(v1, d_new, st.d),
-        mb=torch.where(valid, mb_new, st.mb),
-        ib=torch.where(valid, ib_new, st.ib),
-        e=torch.where(valid, e_new, st.e),
-        off=torch.where(valid, off, st.off),
-        off_c=torch.where(valid, off_c, st.off_c),
-    )
+    p_emit = torch.where(emis == x[:, None], dm.lt.match, dm.lt.mismatch)
+    return _s_core(
+        dm, st, cur_nodes, par_logt, init_lp, p_emit,
+        prev=lambda v: _gather_prev(par_idx, st.nodes, v),
+        self_=lambda v: _gather_self(cur_nodes, st.nodes, v),
+        cur=lambda v: _gather_prev(par_idx, cur_nodes, v),
+        valid=valid, renorm=True)
 
 
 class AdaptiveTables(NamedTuple):
-    nodes: torch.Tensor  # [L, B, A]
-    m: torch.Tensor  # [L, B, A]
+    nodes: torch.Tensor  # [L, B, K]
+    m: torch.Tensor  # [L, B, K] (possibly a reduced storage dtype)
     i: torch.Tensor
     d: torch.Tensor
     off: torch.Tensor  # [L, B]
     e: torch.Tensor  # [B] final score (offset applied)
+
+
+# -- the evolving active set --------------------------------------------------
+
+
+def _dedup_nodes(nodes: torch.Tensor) -> torch.Tensor:
+    """Mark duplicate node ids (per row) as -1, keeping every surviving id
+    in its slot: slot order is priority order (callers cut the row to its
+    leading A slots).  A stable sort finds the duplicates, so the earliest
+    slot keeps an id; then the sorted row is scattered back."""
+    s, order = torch.sort(nodes, dim=-1, stable=True)
+    dup = torch.cat([torch.zeros_like(s[:, :1], dtype=torch.bool),
+                     s[:, 1:] == s[:, :-1]], dim=1)
+    s = torch.where(dup | (s < 0), -1, s)
+    return torch.empty_like(s).scatter_(1, order, s)
+
+
+def _frontier(st: SState, n_top: int, max_ratio):
+    """(top_vals, top_slots) of the merged m+i+d table of the carried active
+    set, score-ratio selected under the top-``n_top`` cap (ref:
+    forward.rs:112-115)."""
+    merged = torch.where(st.nodes >= 0, _ladd3(st.m, st.i, st.d), NEG)
+    if max_ratio is not None:
+        mx = merged.amax(dim=-1, keepdim=True)
+        merged = torch.where(merged >= mx - max_ratio, merged, NEG)
+    return _top_k(merged, min(n_top, merged.shape[1]))
+
+
+def _with_children(top_nodes, childs, child_logt):
+    """[top nodes, their children where the transition exists], deduped."""
+    child_ok = (top_nodes[:, :, None] >= 0) & torch.isfinite(child_logt)
+    childs = torch.where(child_ok, childs, -1)
+    cand = torch.cat([top_nodes, childs.reshape(childs.shape[0], -1)], dim=1)
+    return _dedup_nodes(cand)
+
+
+def _next_active(dm: DeviceModel, st: SState, n_top: int,
+                 max_ratio=None) -> torch.Tensor:
+    """Top-``n_top`` of the previous table -> themselves and their children
+    (ref: forward.rs:148 to_childs_and_us), children from the model."""
+    top_vals, top_slots = _frontier(st, n_top, max_ratio)
+    top_nodes = torch.gather(st.nodes, 1, top_slots)
+    top_nodes = torch.where(torch.isfinite(top_vals), top_nodes, -1)
+    safe = torch.where(top_nodes >= 0, top_nodes, 0).long()
+    return _with_children(top_nodes, dm.child_idx[safe], dm.child_logt[safe])
+
+
+def _next_active_attrs(dm: DeviceModel, st: SState, attrs: torch.Tensor,
+                       n_top: int, max_ratio=None) -> torch.Tensor:
+    """``_next_active`` reading the top nodes' children from the carried
+    attribute block [B, A, 2+5D] (slot gathers) instead of the model."""
+    D = dm.parent_idx.shape[1]
+    c = _attr_cols(D)
+    top_vals, top_slots = _frontier(st, n_top, max_ratio)
+    top_nodes = torch.gather(st.nodes, 1, top_slots)
+    top_nodes = torch.where(torch.isfinite(top_vals), top_nodes, -1)
+    slot_d = top_slots[:, :, None].expand(-1, -1, D)
+    child_logt = torch.gather(attrs[..., c["clogt"]], 1, slot_d)
+    childs = torch.gather(attrs[..., c["cidx"]], 1, slot_d).to(torch.int32)
+    return _with_children(top_nodes, childs, child_logt)
+
+
+def _initial_active(dm: DeviceModel, batch: int, n_top: int) -> torch.Tensor:
+    """Nodes with the highest init prob, for every read: [batch, K] int32
+    with K = min(n_top * (D + 1), n) (the Begin state reaches any node,
+    weighted by init_logp)."""
+    k = min(n_top * (dm.child_idx.shape[1] + 1), dm.init_logp.shape[0])
+    vals, ids = _top_k(dm.init_logp, k)
+    ids = torch.where(torch.isfinite(vals), ids, -1).to(torch.int32)
+    return ids[None].expand(batch, -1).contiguous()
+
+
+def _dense_to_sparse(fstate, A: int) -> SState:
+    """Compact a dense FState [B, n] into its top-A active-set SState."""
+    merged = _ladd3(fstate.m, fstate.i, fstate.d)
+    B, n = merged.shape
+    top_vals, top_ids = _top_k(merged, min(A, n))
+    nodes = torch.where(torch.isfinite(top_vals), top_ids, -1).to(torch.int32)
+
+    def take(tab):
+        out = torch.where(nodes >= 0, torch.gather(tab, 1, top_ids), NEG)
+        if out.shape[1] < A:
+            out = torch.cat([out, out.new_full((B, A - out.shape[1]), NEG)], 1)
+        return out
+
+    if nodes.shape[1] < A:
+        nodes = torch.cat([nodes, nodes.new_full((B, A - nodes.shape[1]), -1)], 1)
+    return SState(nodes=nodes, m=take(fstate.m), i=take(fstate.i),
+                  d=take(fstate.d), mb=fstate.mb, ib=fstate.ib, e=fstate.e,
+                  off=fstate.off, off_c=fstate.off_c)
+
+
+@torch.no_grad()
+def forward_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
+                            lens: torch.Tensor, n_top: int = 40,
+                            n_warmup: int = 16, max_ratio: float = None,
+                            stored_k: Optional[int] = None,
+                            store_bf16: bool = False) -> AdaptiveTables:
+    """Sparse-adaptive forward storing per-step active tables.
+
+    The first ``n_warmup`` positions run dense (exact) and store the table
+    compacted to its top A = min(n_top * (D + 1), n) cells (ref:
+    forward.rs:119-138); then the active set evolves (``_next_active_attrs``
+    over the carried attribute block, one packed gather per step).  The
+    carry always keeps all A cells; the stored tables keep the top
+    ``stored_k`` cells by max(m, i, d) and, with ``store_bf16``, in
+    bfloat16 (they only select the decode's cells; the read
+    log-likelihood ``e`` comes from the carry)."""
+    B, L = codes.shape
+    n = dm.init_logp.shape[0]
+    A = min(n_top * (dm.child_idx.shape[1] + 1), n)
+    W = min(n_warmup, L)
+    K = A if stored_k is None else min(stored_k, A)
+    dt, dev = dm.dtype, dm.device
+    sdt = torch.bfloat16 if store_bf16 else dt
+    ns = torch.empty((L, B, K), dtype=torch.int32, device=dev)
+    ms = torch.empty((L, B, K), dtype=sdt, device=dev)
+    is_, ds = torch.empty_like(ms), torch.empty_like(ms)
+    offs = torch.empty((L, B), dtype=dt, device=dev)
+
+    def emit(p, st):
+        nodes, m, i, d = st.nodes, st.m, st.i, st.d
+        if K < nodes.shape[1]:
+            key = torch.where(nodes >= 0,
+                              torch.maximum(torch.maximum(m, i), d), NEG)
+            _, slots = _top_k(key, K)
+            nodes, m, i, d = (torch.gather(a, 1, slots) for a in (nodes, m, i, d))
+        ns[p], ms[p], is_[p], ds[p], offs[p] = nodes, m, i, d, st.off
+
+    codes_t = codes.t()
+    # phase 1: dense warmup, storing compacted top-A tables
+    fst = _f_init((B,), n, dt, dev)
+    pidx = dm.parent_idx.long()
+    for p in range(W):
+        fst = _f_step(dm, fst, codes_t[p], p < lens, True, pidx)
+        emit(p, _dense_to_sparse(fst, A))
+    st = _dense_to_sparse(fst, A)
+
+    # phase 2: the evolving frontier
+    pk = _pack_model(dm)
+    attrs = _gather_attrs(pk, st.nodes)
+    for p in range(W, L):
+        valid = p < lens
+        cur = _next_active_attrs(dm, st, attrs, n_top, max_ratio)[:, :A]
+        attrs1 = _gather_attrs(pk, cur)
+        st = _s_step_attrs(dm, st, cur, attrs1, codes_t[p], valid)
+        attrs = torch.where(valid[:, None, None], attrs1, attrs)
+        emit(p, st)
+    return AdaptiveTables(nodes=ns, m=ms, i=is_, d=ds, off=offs, e=st.e + st.off)
 
 
 def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
@@ -150,14 +254,7 @@ def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
     B, L = codes.shape
     A = map_nodes.shape[2]
     dt, dev = dm.dtype, dm.device
-    z = torch.zeros(B, dtype=dt, device=dev)
-    neg_ba = torch.full((B, A), NEG, dtype=dt, device=dev)
-    st = SState(
-        nodes=torch.full((B, A), -1, dtype=torch.int32, device=dev),
-        m=neg_ba, i=neg_ba, d=neg_ba, mb=z,
-        ib=torch.full((B,), NEG, dtype=dt, device=dev),
-        e=torch.full((B,), NEG, dtype=dt, device=dev), off=z, off_c=z,
-    )
+    st = _s_init(dm, B, A)
     ns = torch.empty((L, B, A), dtype=torch.int32, device=dev)
     ms = torch.empty((L, B, A), dtype=dt, device=dev)
     is_, ds = torch.empty_like(ms), torch.empty_like(ms)
@@ -171,6 +268,9 @@ def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
                            codes_t[p], p < lens)
         ns[p], ms[p], is_[p], ds[p], offs[p] = st.nodes, st.m, st.i, st.d, st.off
     return AdaptiveTables(nodes=ns, m=ms, i=is_, d=ds, off=offs, e=st.e + st.off)
+
+
+# -- backward by forward and the decode ---------------------------------------
 
 
 class BCarry(NamedTuple):
@@ -189,8 +289,7 @@ def _b_step_sparse(dm: DeviceModel, st: BCarry, cur_nodes: torch.Tensor,
     """Backward step restricted to the forward's active cells
     (ref: backward.rs:216-261)."""
     lt = dm.lt
-    D = dm.parent_idx.shape[1]
-    c = _attr_cols(D)
+    c = _attr_cols(dm.parent_idx.shape[1])
     slot_ok = cur_nodes >= 0
     child_idx = attrs[..., c["cidx"]].to(torch.int32)
     child_logt = torch.where(slot_ok[:, :, None], attrs[..., c["clogt"]], NEG)
@@ -201,31 +300,33 @@ def _b_step_sparse(dm: DeviceModel, st: BCarry, cur_nodes: torch.Tensor,
     bm_next = _gather_prev(child_idx, st.nodes, st.m)
     bi_self = _gather_self(cur_nodes, st.nodes, st.i)
 
-    bd0 = _lse_last(child_logt + lt.DM + p_emit_child + bm_next)
+    bd0 = _lse_deg(child_logt + lt.DM + p_emit_child + bm_next)
     bd0 = _ladd(bd0, lt.DI + lt.random + bi_self)
     d_new = bd0
     bdt = bd0
     for _ in range(dm.n_max_gaps):
-        bdt = _lse_last(child_logt + lt.DD + _gather_prev(child_idx, cur_nodes, bdt))
+        bdt = _lse_deg(child_logt + lt.DD + _gather_prev(child_idx, cur_nodes, bdt))
         d_new = _ladd(d_new, bdt)
 
     bd_child = _gather_prev(child_idx, cur_nodes, d_new)
 
-    m_new = _lse_last(
+    m_new = _lse_deg(
         child_logt + _ladd(lt.MM + p_emit_child + bm_next, lt.MD + bd_child))
     m_new = _ladd(m_new, lt.MI + lt.random + bi_self)
-    i_new = _lse_last(
+    i_new = _lse_deg(
         child_logt + _ladd(lt.IM + p_emit_child + bm_next, lt.ID + bd_child))
     i_new = _ladd(i_new, lt.II + lt.random + bi_self)
 
-    ib_new = _neg_like(st.ib)  # not tracked sparsely (unused by the mapping)
+    ib_new = torch.full_like(st.ib, NEG)  # not tracked sparsely (unused)
 
     m_new = torch.where(slot_ok, m_new, NEG)
     i_new = torch.where(slot_ok, i_new, NEG)
     d_new = torch.where(slot_ok, d_new, NEG)
 
-    m_new, i_new, d_new, _shift, off, off_c = _renorm(
-        m_new, i_new, d_new, st.off, st.off_c, valid)
+    shift = _max_shift(m_new, valid)
+    m_new, i_new, d_new = (m_new - shift[:, None], i_new - shift[:, None],
+                           d_new - shift[:, None])
+    off, off_c = _kahan(st.off, st.off_c, shift)
 
     v1 = valid[:, None]
     return BCarry(
@@ -239,21 +340,13 @@ def _b_step_sparse(dm: DeviceModel, st: BCarry, cur_nodes: torch.Tensor,
     )
 
 
-def _top_k(x: torch.Tensor, k: int):
-    """lax.top_k over the last axis: descending, ties keep the lower index."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def _s_log(s_lin: torch.Tensor) -> torch.Tensor:
-    return torch.where(s_lin > 0, torch.log(torch.clamp(s_lin, min=1e-300)), NEG)
-
-
 def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
                                   lens: torch.Tensor, f: AdaptiveTables,
                                   n_active: int, max_ratio):
     """Backward-by-forward + per-position top-k decode over the stored
-    forward tables (ref: backward.rs:101-142, table.rs:500-517).
+    forward tables (ref: backward.rs:101-142, table.rs:500-517); the stored
+    tables may be bfloat16, the backward carry is ``dm.dtype`` (a sum of
+    the two is in the wider type).
 
     Returns (logp [B], map_nodes [B, L, k], map_logp [B, L, k])."""
     B, L = codes.shape
@@ -261,10 +354,6 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
     logp = f.e
     ar = torch.arange(B, device=dev)
     lens_l = lens.long()
-
-    rev_idx = lens_l[:, None] - 1 - torch.arange(L, device=dev)[None, :]
-    xs_rev = torch.where(
-        rev_idx >= 0, torch.gather(codes, 1, rev_idx.clamp(0, L - 1)), -1)
 
     last = (lens_l - 1).clamp(0, L - 1)
     final_nodes = f.nodes[last, ar]
@@ -279,7 +368,7 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
     i_merges = torch.empty((L, B), dtype=torch.long, device=dev)
     valids = torch.empty((L, B), dtype=torch.bool, device=dev)
     pk = _pack_model(dm)
-    xs_rev_t = xs_rev.t()
+    xs_rev_t = _reverse_codes(codes, lens).t()
     for t in range(L):
         valid = t < lens
         i_merge = lens_l - 1 - t  # merged index of the B table produced
@@ -299,17 +388,8 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
         tops_logp[t], tops_nodes[t] = _ratio_mask(top_logp, top_nodes, max_ratio)
         i_merges[t], valids[t] = i_merge, valid
 
-    # scatter into read-position order: S index i -> read position i - 1;
-    # entries that are not ok go to the dropped column L
-    j_pos = i_merges - 1
-    ok = (j_pos >= 0) & valids
-    j_write = torch.where(ok, j_pos, L)
-    map_logp = torch.full((B, L + 1, k), NEG, dtype=dt, device=dev)
-    map_nodes = torch.full((B, L + 1, k), -1, dtype=torch.int32, device=dev)
-    batch_ix = ar[None, :].expand(L, B)
-    map_logp[batch_ix, j_write] = tops_logp
-    map_nodes[batch_ix, j_write] = tops_nodes
-
+    map_logp, map_nodes = _scatter_positions(tops_logp, tops_nodes, i_merges,
+                                             valids, L)
     # read position len-1: S[len] = F[len] * B_init(p_end)
     fm_l, fi_l, fd_l = f.m[last, ar], f.i[last, ar], f.d[last, ar]
     scale_l = (f.off[last, ar] + dm.lt.end - logp)[:, None]
@@ -320,10 +400,27 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
     last_nodes = torch.gather(final_nodes, 1, last_slot)
     last_nodes = torch.where(torch.isfinite(last_logp), last_nodes, -1)
     last_logp, last_nodes = _ratio_mask(last_logp, last_nodes, max_ratio)
-    j_last = torch.where(lens_l > 0, lens_l - 1, L)
-    map_logp[ar, j_last] = last_logp
-    map_nodes[ar, j_last] = last_nodes
-    return logp, map_nodes[:, :L], map_logp[:, :L]
+    map_nodes, map_logp = _put_last(map_logp, map_nodes, last_logp, last_nodes,
+                                    lens, L)
+    return logp, map_nodes, map_logp
+
+
+def mappings_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
+                             lens: torch.Tensor, n_top: int = 40,
+                             n_active: int = 40, max_ratio: float = None,
+                             n_warmup: int = 16, stored_k: Optional[int] = None,
+                             store_bf16: bool = False):
+    """Sparse-adaptive forward + backward-by-forward decode (ref: freq.rs:60
+    run_sparse_adaptive + hint.rs:124-142).
+
+    Returns (logp [B], map_nodes [B, L, k], map_logp [B, L, k]) on dm's
+    device, k = min(n_active, stored cells)."""
+    with torch.no_grad():
+        f = forward_sparse_adaptive(dm, codes, lens, n_top=n_top,
+                                    n_warmup=n_warmup, max_ratio=max_ratio,
+                                    stored_k=stored_k, store_bf16=store_bf16)
+        return _decode_mappings_from_forward(dm, codes, lens, f, n_active,
+                                             max_ratio)
 
 
 def mappings_refine(dm: DeviceModel, codes: torch.Tensor, lens: torch.Tensor,

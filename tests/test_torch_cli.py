@@ -2,6 +2,7 @@
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,8 @@ from dbgphmm_tpu_torch.phmm.params import PHMMParams
 from dbgphmm_tpu_torch.seq.collection import ReadCollection, StyledSequence
 from dbgphmm_tpu_torch.seq.genome import Genome
 from dbgphmm_tpu_torch.seq.random_seq import generate
+
+from test_torch_posterior import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -40,16 +43,26 @@ def _options(sub):
         a.dest for a in sub._actions if not a.option_strings}
 
 
-@pytest.mark.parametrize("command", ["infer", "sim-infer", "euler", "inspect",
-                                     "sample", "sample-from-true"])
+HOST_ONLY = ("euler", "raw-dbg", "draft", "sim-draft", "edit-dist", "modify-dbg")
+
+
+@pytest.mark.parametrize("command", [
+    "infer", "sim-infer", "euler", "inspect", "sample", "sample-from-true",
+    "raw-dbg", "draft", "sim-draft", "mapping", "freq", "table", "edit-dist",
+    "modify-dbg", "extend-mapping"])
 def test_cli_takes_the_jax_cli_flags(command):
     """Every flag of the JAX CLI's subcommand is accepted; --device is the
-    one addition (every command but euler)."""
+    one addition, on every command that runs the PHMM."""
     ours = _options(_subparser(cli.build_parser(), command))
     ref = _options(_subparser(jax_cli.build_parser(), command))
     assert ref <= ours
-    extra = {"--device"} if command != "euler" else set()
+    extra = set() if command in HOST_ONLY else {"--device"}
     assert ours - ref == extra
+    defaults = lambda parser: {a.dest: a.default for a in
+                               _subparser(parser, command)._actions}
+    ref_d = defaults(jax_cli.build_parser())
+    assert {k: v for k, v in defaults(cli.build_parser()).items()
+            if k in ref_d} == ref_d
 
 
 @pytest.mark.parametrize("command", [
@@ -61,6 +74,7 @@ def test_cli_takes_the_jax_cli_flags(command):
     ["sample", "-d", "data/bench/data.dbg", "-o", "unused", "-G", "1000",
      "reads.fa"],
     ["sample-from-true", "data/bench/data.json", "-k", "40", "-o", "unused"],
+    ["table", "-d", "data/bench/data.dbg", "reads.fa"],
 ])
 def test_cli_refuses_cuda_without_a_gpu(command):
     """Without --device cpu the CLI asks for CUDA; on a machine without a
@@ -199,3 +213,138 @@ def test_cli_sample_from_true_matches_jax(seeded_case, capsys):
                                    ref.find(s.copy_nums).score.likelihood,
                                    rtol=0, atol=1e-6)
     assert (d / "tsft.inspect").exists()
+
+
+# -- the remaining commands write the JAX CLI's files (tests/test_cli.py) -----
+
+
+@pytest.fixture(scope="module")
+def simdir(tmp_path_factory):
+    """test_cli.py's tiny dataset, written by both CLIs' sim-draft (port:
+    prefix t, JAX: prefix j)."""
+    d = tmp_path_factory.mktemp("sim")
+    argv = ["sim-draft", "-k", "12", "--unit-size", "10", "--n-unit", "4",
+            "--end-length", "30", "--div-hap", "0.05", "-C", "12", "-L", "200",
+            "-p", "0.001", "-o"]
+    cli.main(argv + [str(d / "t")])
+    jax_cli.main(["--cpu"] + argv + [str(d / "j")])
+    return d
+
+
+def _same_files(d, *names):
+    """Port (prefix t) and JAX (prefix j) files byte for byte."""
+    for name in names:
+        t, j = (d / name.format(p=p) for p in ("t", "j"))
+        assert t.read_bytes() == j.read_bytes(), name
+
+
+def _same_text(d, *names):
+    """The same text, but numbers with a fraction or exponent to 1e-9
+    relative (the .map files print log-probabilities in full, and the two
+    packages round their last digits differently)."""
+    for name in names:
+        t, j = ((d / name.format(p=p)).read_text() for p in ("t", "j"))
+        tt, jt = re.split(r"([\t\n,: ])", t), re.split(r"([\t\n,: ])", j)
+        assert len(tt) == len(jt), name
+        for a, b in zip(tt, jt):
+            if a != b:
+                assert re.fullmatch(r"-?[0-9.]+e?-?[0-9]*", a), (name, a, b)
+                assert float(a) == pytest.approx(float(b), rel=1e-9, abs=1e-12), \
+                    (name, a, b)
+
+
+def test_sim_draft_writes_the_jax_files(simdir):
+    _same_files(simdir, *(f"{{p}}{ext}" for ext in (
+        ".json", ".genome.fa", ".reads.fa", ".reads.sam", ".dbg", ".paths")))
+
+
+def test_raw_dbg_and_draft_write_the_jax_files(simdir, capsys):
+    d = simdir
+    for main, p, pre in ((cli.main, "t", []), (jax_cli.main, "j", ["--cpu"])):
+        main(pre + ["raw-dbg", "-k", "12", "-M", "2", str(d / f"{p}.reads.fa"),
+                    "-g", str(d / f"{p}.raw.gfa")])
+        main(pre + ["draft", "-k", "12", "-M", "2", "-G", "180",
+                    str(d / f"{p}.reads.fa"), "-d", str(d / f"{p}.draft.dbg"),
+                    "-g", str(d / f"{p}.draft.gfa")])
+    assert (d / "t.raw.gfa").read_text().startswith("S\t")
+    _same_files(d, "{p}.raw.gfa", "{p}.draft.dbg", "{p}.draft.gfa")
+
+
+def _outputs(capsys, prefix):
+    return [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith(prefix)]
+
+
+def test_table_matches_jax(simdir, capsys):
+    """table --device cpu (float64 dense forward): each read's logP as the
+    JAX command prints it, and the total."""
+    d = simdir
+    scores = cli.main(["table", "-d", str(d / "t.dbg"), str(d / "t.reads.fa"),
+                       "--device", "cpu"])
+    got = _outputs(capsys, ("read ", "# total"))
+    jax_cli.main(["--cpu", "table", "-d", str(d / "j.dbg"), str(d / "j.reads.fa")])
+    ref = _outputs(capsys, ("read ", "# total"))
+    assert scores.dtype == torch.float64 and torch.isfinite(scores).all()
+    assert got == ref and got[-1].startswith("# total logP")
+
+
+def test_mapping_freq_and_edit_dist_match_jax(simdir, capsys):
+    """mapping, freq (dense decode on the k=12 draft) and edit-dist write
+    and print what the JAX commands do."""
+    d = simdir
+    for main, p, pre, dev in ((cli.main, "t", [], ["--device", "cpu"]),
+                              (jax_cli.main, "j", ["--cpu"], [])):
+        main(pre + ["mapping", "-d", str(d / f"{p}.dbg"), str(d / f"{p}.reads.fa"),
+                    "-o", str(d / f"{p}.map")] + dev)
+        main(pre + ["freq", "-d", str(d / f"{p}.dbg"), str(d / f"{p}.reads.fa"),
+                    "-o", str(d / f"{p}.freq")] + dev)
+    _same_text(d, "{p}.map")
+    _same_files(d, "{p}.freq")
+    capsys.readouterr()
+    for main, pre in ((cli.main, []), (jax_cli.main, ["--cpu"])):
+        main(pre + ["edit-dist", str(d / "t.genome.fa"), str(d / "t.reads.fa")])
+    lines = _outputs(capsys, "pair ")
+    half = len(lines) // 2
+    assert half > 1 and lines[:half] == lines[half:]
+    assert all("edit_dist=" in ln for ln in lines)
+
+
+def test_modify_dbg_writes_the_jax_file(simdir):
+    """modify-dbg applies an INSPECT sample's copy numbers as the JAX
+    command does."""
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+
+    d = simdir
+    dbg = TO.from_dbg_file(d / "t.dbg")
+    post = TP.Posterior()
+    for i, (cn, _info) in enumerate(to_short_neighbors(dbg, 8, 2)[:3]):
+        post.add(TP.PosteriorSample(list(cn), TP.Score(-10.0 - i, 0.0, 100, 0.0)))
+    TO.to_inspect_file(dbg, d / "x.inspect", post)
+    for main, p, pre in ((cli.main, "t", []), (jax_cli.main, "j", ["--cpu"])):
+        main(pre + ["modify-dbg", "-d", str(d / "t.dbg"), "--inspect",
+                    str(d / "x.inspect"), "--sample-id", "1", "-o",
+                    str(d / f"{p}.mod.dbg")])
+    _same_files(d, "{p}.mod.dbg")
+    assert TO.from_dbg_file(d / "t.mod.dbg").get_copy_nums() != dbg.get_copy_nums()
+
+
+def test_extend_mapping_matches_jax(simdir, capsys):
+    """extend-mapping -K 14 --device cpu: the same per-k .map and .dbg files
+    and the same p_extend / p_true as the JAX command."""
+    d = simdir
+    for main, p, pre, dev in ((cli.main, "t", [], ["--device", "cpu"]),
+                              (jax_cli.main, "j", ["--cpu"], [])):
+        main(pre + ["extend-mapping", str(d / f"{p}.json"), "-d",
+                    str(d / f"{p}.dbg"), "-K", "14", "-p", "0.001", "-o",
+                    str(d / f"{p}.em")] + dev)
+    lines = _outputs(capsys, "k=")
+    fields = [dict(f.split("=") for f in ln.split()) for ln in lines]
+    assert len(fields) == 4  # k = 13, 14 in each package
+    for got, ref in zip(fields[:2], fields[2:]):
+        assert got["k"] == ref["k"]
+        for key in ("p_extend", "p_true"):
+            assert float(got[key]) <= 0.0
+            assert float(got[key]) == pytest.approx(float(ref[key]), abs=1e-3)
+    for k in (13, 14):
+        _same_text(d, f"{{p}}.em.k{k}.extend.map", f"{{p}}.em.k{k}.true.map")
+        _same_files(d, f"{{p}}.em.k{k}.dbg", f"{{p}}.em.k{k}.gfa")

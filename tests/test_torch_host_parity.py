@@ -16,8 +16,8 @@ import pytest
 
 MODULES = ("seq.genome", "seq.collection", "e2e", "multi_dbg",
            "multi_dbg.draft", "multi_dbg.neighbors", "multi_dbg.seed",
-           "multi_dbg.output", "multi_dbg.posterior", "graph.euler",
-           "phmm.params", "phmm.template")
+           "multi_dbg.output", "multi_dbg.posterior", "multi_dbg.toy",
+           "graph.euler", "phmm.params", "phmm.template", "utils")
 
 # (name, genome arguments of tandem_repeat_polyploid_with_unique_homo_ends,
 #  k of the graph, read seed, coverage, read length)
@@ -203,3 +203,36 @@ def test_files_match_jax_and_read_across(pair, tmp_path):
             s.copy_nums for s in sorted(ref.samples, key=lambda s: -s.score.p())]
         for s in post.samples:
             assert s.score.to_json() == ref.find(s.copy_nums).score.to_json()
+
+
+@pytest.mark.parametrize("name", sorted(JAX.multi_dbg_toy.ALL))
+def test_toy_graphs_match_jax(name):
+    """multi_dbg.toy: each named fixture graph has the same .dbg text."""
+    got = PORT.multi_dbg_toy.ALL[name]()
+    ref = JAX.multi_dbg_toy.ALL[name]()
+    assert (PORT.multi_dbg_output.to_dbg_string(got)
+            == JAX.multi_dbg_output.to_dbg_string(ref))
+
+
+def test_edit_distance_matches_jax():
+    """utils.edit_distance on seeded random pairs (substitutions, indels,
+    empty sides) and a hand-checked case."""
+    rng = np.random.default_rng(3)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pairs = [(b"", b"ACGT"), (b"kitten", b"sitting")]
+    for n in (1, 7, 40, 120):
+        a = bytes(rng.choice(bases, n))
+        b = bytearray(a)
+        for _ in range(max(1, n // 10)):
+            i = int(rng.integers(0, len(b) + 1))
+            op = rng.integers(0, 3)
+            if op == 0 and i < len(b):
+                b[i] = int(rng.choice(bases))
+            elif op == 1:
+                b.insert(i, int(rng.choice(bases)))
+            elif i < len(b):
+                del b[i]
+        pairs.append((a, bytes(b)))
+    got = [PORT.utils.edit_distance(a, b) for a, b in pairs]
+    assert got == [JAX.utils.edit_distance(a, b) for a, b in pairs]
+    assert got[:2] == [4, 3]

@@ -31,6 +31,8 @@ from dbgphmm_tpu_torch.phmm import params as port_params
 from dbgphmm_tpu_torch.phmm import template as port_template
 from dbgphmm_tpu_torch.seq import collection as port_collection
 
+from test_torch_posterior import one_torch_thread  # noqa: F401
+
 STREAM_FIELDS = ("codes", "emis", "numce", "selfp", "prevp", "curp", "dence",
                  "lens")
 

@@ -1,23 +1,31 @@
 """The port's posterior inference (dbgphmm_tpu_torch.multi_dbg.posterior)
 against the JAX package on the small diploid of tests/test_posterior.py.
 
-Both packages are pushed onto the seeded regime by setting
-DENSE_COMPUTE_MAX_NODES to 0 in each (monkeypatch; no file of the JAX
-package changes), so the JAX reference runs the same path as the port:
-seeding + refine, mapped candidate scoring (float64 XLA there, the K1
-kernel's float64 twin here), hill climb, purge and extension.
+Tests with the ``seeded`` fixture push both packages onto the seeded
+regime by setting DENSE_COMPUTE_MAX_NODES to 0 in each (monkeypatch; no
+file of the JAX package changes), so the JAX reference runs the same path
+as the port: seeding + refine, mapped candidate scoring (float64 XLA
+there, the K1 kernel's float64 twin here), hill climb, purge and
+extension.  The small-graph tests leave the thresholds as they are and
+run the from-scratch decodes (dense and sparse-adaptive) and, without
+mappings, the dense batch scorer, on both sides.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import dbgphmm_tpu.multi_dbg.posterior as JP
 import dbgphmm_tpu_torch.multi_dbg.posterior as TP
 from dbgphmm_tpu import multi_dbg as jax_multi_dbg
+from dbgphmm_tpu.multi_dbg import neighbors as jax_neighbors
 from dbgphmm_tpu.phmm import params as jax_params
 from dbgphmm_tpu.seq import collection as jax_collection
 from dbgphmm_tpu.seq import genome as jax_genome
 from dbgphmm_tpu_torch import multi_dbg as port_multi_dbg
+from dbgphmm_tpu_torch.multi_dbg import neighbors as port_neighbors
 from dbgphmm_tpu_torch.multi_dbg import output as TO
 from dbgphmm_tpu_torch.multi_dbg.neighbors import to_short_neighbors
 from dbgphmm_tpu_torch.phmm import params as port_params
@@ -26,6 +34,17 @@ from dbgphmm_tpu_torch.seq import genome as port_genome
 
 MultiDbg = port_multi_dbg.MultiDbg
 PHMMParams = port_params.PHMMParams
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These tests run thousands of tiny PyTorch ops; with one intra-op
+    thread per test process they do not oversubscribe the cores when the
+    suite runs in parallel processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def small_diploid(jax=False):
@@ -119,14 +138,203 @@ def test_sample_posterior_recovers_from_corruption(seeded):
     assert post.max_copy_nums() == true_cn
 
 
-def test_small_graph_without_hint_is_not_routed_elsewhere():
-    """Below DENSE_COMPUTE_MAX_NODES the from-scratch decode is not ported:
-    the call raises and names the ROADMAP items that port it."""
-    g = small_diploid()
-    dbg = MultiDbg.from_styled_seqs(8, list(g))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.generate_mappings(dbg, PHMMParams.uniform(0.001),
-                             perfect_reads(g), "cpu")
+def _same_mappings(got, ref):
+    """Port mappings against the JAX package's: read likelihoods to 1e-9
+    relative, identical node sets, finite log-probabilities to 1e-8."""
+    assert got.n_reads() == ref.n_reads()
+    np.testing.assert_allclose(got.read_logps, ref.read_logps, rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got.anchor_logps, ref.anchor_logps, rtol=1e-9,
+                               atol=0)
+    assert got.stages_since_anchor == ref.stages_since_anchor
+    for a, b, la, lb in zip(got.nodes, ref.nodes, got.logps, ref.logps):
+        np.testing.assert_array_equal(a, b)
+        fin = np.isfinite(lb)
+        np.testing.assert_array_equal(np.isfinite(la), fin)
+        np.testing.assert_allclose(la[fin], lb[fin], rtol=0, atol=1e-8)
+
+
+def _same_samples(got, ref, rtol=1e-6):
+    """The same samples in the same order, likelihoods to ``rtol``."""
+    assert [s.copy_nums for s in got.samples] == [s.copy_nums for s in ref.samples]
+    for s in got.samples:
+        np.testing.assert_allclose(s.score.likelihood,
+                                   ref.find(s.copy_nums).score.likelihood,
+                                   rtol=rtol)
+
+
+def _both(build):
+    """build(side) on the JAX package's objects and on the port's; side
+    carries the modules and ``jax`` (True / False)."""
+    out = {}
+    for jax in (True, False):
+        side = SimpleNamespace(
+            jax=jax, P=JP if jax else TP,
+            MultiDbg=(jax_multi_dbg if jax else port_multi_dbg).MultiDbg,
+            PHMMParams=(jax_params if jax else port_params).PHMMParams,
+            col=jax_collection if jax else port_collection,
+            gen=lambda **kw: JP.generate_mappings(**kw) if jax else
+            TP.generate_mappings(device="cpu", **kw))
+        out["jax" if jax else "torch"] = build(side)
+    return out["torch"], out["jax"]
+
+
+def test_small_graph_without_hint_is_decoded_from_scratch():
+    """Below DENSE_MAPPING_MAX_NODES a call without a hint runs the dense
+    decode: the JAX package's mapping, and its own anchor."""
+    def build(S):
+        g = small_diploid(S.jax)
+        dbg = S.MultiDbg.from_styled_seqs(8, list(g))
+        assert dbg.n_edges_full() <= TP.DENSE_MAPPING_MAX_NODES
+        return S.gen(dbg=dbg, params=S.PHMMParams.uniform(0.001),
+                     reads=perfect_reads(g, jax=S.jax))
+    got, ref = _both(build)
+    _same_mappings(got, ref)
+    np.testing.assert_array_equal(got.anchor_logps, got.read_logps)
+    assert got.stages_since_anchor == 0
+
+
+def test_generate_mappings_sane():
+    """n_active=8: node freqs account for ~all read bases; the JAX
+    package's mapping (tests/test_posterior.py)."""
+    def build(S):
+        g = small_diploid(S.jax)
+        reads = perfect_reads(g, coverage=5, read_len=12, jax=S.jax)
+        dbg = S.MultiDbg.from_styled_seqs(8, list(g))
+        return S.gen(dbg=dbg, params=S.PHMMParams.uniform(0.001), reads=reads,
+                     n_active=8), dbg, reads
+    (got, dbg, reads), (ref, _d, _r) = _both(build)
+    assert got.n_reads() == len(reads)
+    freqs = got.to_node_freqs(dbg.n_edges_full())
+    assert freqs.sum() == pytest.approx(reads.total_bases(), rel=0.05)
+    _same_mappings(got, ref)
+
+
+def test_generate_mappings_score_ratio_trims_width():
+    """The ratio window trims the width far below the cap and keeps each
+    position's slots within active_node_max_ratio of its best."""
+    def build(S):
+        g = small_diploid(S.jax)
+        return S.gen(dbg=S.MultiDbg.from_styled_seqs(8, list(g)),
+                     params=S.PHMMParams.uniform(0.001),
+                     reads=perfect_reads(g, coverage=5, read_len=12, jax=S.jax))
+    got, ref = _both(build)
+    assert max(n.shape[1] for n in got.nodes) <= 32
+    ratio = PHMMParams.uniform(0.001).active_node_max_ratio
+    for nodes, logps in zip(got.nodes, got.logps):
+        for j in range(nodes.shape[0]):
+            lp = logps[j][nodes[j] >= 0]
+            assert lp.size == 0 or lp.max() - lp.min() <= ratio + 1e-6
+    _same_mappings(got, ref)
+
+
+def test_generate_mappings_ratio_keeps_ambiguous_alternatives():
+    """A read of one bare unit of a 2-copy repeat: every position keeps a
+    slot; the JAX package's mapping."""
+    unit = b"ACGTTGCA"
+
+    def build(S):
+        dbg = S.MultiDbg.from_styled_seqs(
+            4, [S.col.StyledSequence.linear(b"TTT" + unit * 2 + b"GGG")])
+        return S.gen(dbg=dbg, params=S.PHMMParams.uniform(0.001),
+                     reads=S.col.ReadCollection([unit]))
+    got, ref = _both(build)
+    assert all((got.nodes[0][j] >= 0).sum() >= 1
+               for j in range(got.nodes[0].shape[0]))
+    _same_mappings(got, ref)
+
+
+def test_generate_mappings_read_chunking():
+    """A chunked decode (read_chunk < n_reads) gives the single-batch
+    decode's mappings, in the port as in the JAX package."""
+    def build(S):
+        g = small_diploid(S.jax)
+        dbg = S.MultiDbg.from_styled_seqs(8, list(g))
+        reads = perfect_reads(g, coverage=8, read_len=14, seed=3, jax=S.jax)
+        kw = dict(dbg=dbg, params=S.PHMMParams.uniform(0.001), reads=reads,
+                  n_active=8)
+        return S.gen(read_chunk=0, **kw), S.gen(read_chunk=5, **kw)
+    (full, chunked), (ref_full, ref_chunked) = _both(build)
+    np.testing.assert_allclose(chunked.read_logps, full.read_logps, atol=1e-9)
+    for a, b in zip(chunked.nodes, full.nodes):
+        w = min(a.shape[1], b.shape[1])
+        assert np.array_equal(a[:, :w], b[:, :w])
+        assert (a[:, w:] < 0).all() and (b[:, w:] < 0).all()
+    _same_mappings(chunked, ref_chunked)
+
+
+def test_sample_posterior_recovers_from_corruption_small_graph():
+    """The hill climb on the dense decode's mapping, from a corrupted
+    neighbour of the truth: back to the truth, with the JAX package's
+    samples and likelihoods to 1e-6 relative."""
+    def build(S):
+        g = small_diploid(S.jax)
+        dbg = S.MultiDbg.from_styled_seqs(8, list(g))
+        reads = perfect_reads(g, coverage=10, read_len=14, jax=S.jax)
+        params = S.PHMMParams.uniform(0.001)
+        nb = (jax_neighbors if S.jax else port_neighbors).to_short_neighbors
+        work = dbg.copy()
+        work.set_copy_nums(nb(dbg, 8, 2)[0][0])
+        maps = S.gen(dbg=work, params=params, reads=reads)
+        kw = dict(rescue_only=False, max_iter=10)
+        if not S.jax:
+            kw["device"] = "cpu"
+        post = S.P.sample_posterior(work, params, reads, maps,
+                                    g.genome_size(), 5, **kw)
+        return post, dbg.get_copy_nums()
+    (got, true_cn), (ref, _t) = _both(build)
+    assert got.max_copy_nums() == ref.max_copy_nums() == true_cn
+    _same_samples(got, ref)
+
+
+def test_sample_posterior_without_mappings_matches_jax():
+    """mappings=None: the port scores through candidate_log_likelihoods
+    (the dense forward) in sub-batches; the same samples, moves and
+    max_copy_nums as the JAX package, likelihoods to 1e-9 relative."""
+    def build(S):
+        g = small_diploid(S.jax)
+        dbg = S.MultiDbg.from_styled_seqs(8, list(g))
+        reads = perfect_reads(g, coverage=6, read_len=14, jax=S.jax)
+        nb = (jax_neighbors if S.jax else port_neighbors).to_short_neighbors
+        work = dbg.copy()
+        work.set_copy_nums(nb(dbg, 8, 2)[0][0])
+        kw = dict(rescue_only=False, max_iter=2)
+        if not S.jax:
+            kw["device"] = "cpu"
+        return S.P.sample_posterior(work, S.PHMMParams.uniform(0.001), reads,
+                                    None, g.genome_size(), 5, **kw)
+    got, ref = _both(build)
+    assert got.max_copy_nums() == ref.max_copy_nums()
+    assert got.max_sample().to_infos_string() == ref.max_sample().to_infos_string()
+    _same_samples(got, ref, rtol=1e-9)
+
+
+@pytest.mark.parametrize("use_hint", [False, True])
+def test_infer_small_graph_matches_jax(use_hint):
+    """Draft at k=8 -> k=16 on the clean diploid through the from-scratch
+    decodes (and, with hints, the refine): both haplotypes assembled, and
+    the JAX package's max_copy_nums at every stage
+    (tests/test_posterior.py's infer and hint-vs-fresh tests)."""
+    def build(S):
+        g = small_diploid(S.jax)
+        reads = perfect_reads(g, coverage=12, read_len=16, seed=1, jax=S.jax)
+        params = S.PHMMParams.uniform(0.001)
+        stages = []
+        kw = dict(k_max=16, dbg_init=S.MultiDbg.from_styled_seqs(8, list(g)),
+                  param_infer=params, param_error=params, reads=reads,
+                  genome_size_expected=g.genome_size(), genome_size_sigma=5,
+                  max_iter=10, p0=0.8, n_haplotypes=2,
+                  use_hint_mappings=use_hint,
+                  on_iter=lambda d, p, pa, m: stages.append(
+                      (d.k, p.max_copy_nums())))
+        if not S.jax:
+            kw["device"] = "cpu"
+        dbg_final, post, _p, _m = S.P.infer_posterior_by_extension(**kw)
+        haps = sorted(s.seq for s, _c in dbg_final.get_linear_haplotype_seqs())
+        return dbg_final.k, haps, post.max_copy_nums(), stages, sorted(
+            s.seq for s in g)
+    got, ref = _both(build)
+    assert got[0] == 16 and got[1] == got[4]
+    assert got[:4] == ref[:4]
 
 
 def test_map_and_post_files_round_trip(seeded, tmp_path):

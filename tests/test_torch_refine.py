@@ -24,6 +24,8 @@ from dbgphmm_tpu_torch.ops.forward import device_model_from_numpy
 from dbgphmm_tpu_torch.phmm import params as port_params
 from dbgphmm_tpu_torch.seq import genome as port_genome
 
+from test_torch_posterior import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def setup():

@@ -42,6 +42,7 @@ from dbgphmm_tpu_torch.phmm import template as port_template
 from dbgphmm_tpu_torch.seq import collection as port_collection
 
 from test_torch_mapped_scorer import _stream_tensors, _widened, setup  # noqa: F401
+from test_torch_posterior import one_torch_thread  # noqa: F401
 
 TWINS = {"log": (T.mapped_scores_log_single, T.log_inv_total),
          "linear": (T.mapped_scores_linear, T.lin_inv_total)}
