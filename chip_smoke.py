@@ -103,14 +103,23 @@ and the script exits non-zero:
                  launched; the CLI's ``table`` (float64 on the card) on all
                  reads against the CPU's float64 forward of the first read
                  and the float64 batch score of the draft, to 1e-9.
-10. frontier_decode -- DBGPHMM_SEED_MAPPING=0 on 4 full-length reads of
-                 data/bench (43,743 full edges): the evolving-frontier decode
+10. frontier_decode -- DBGPHMM_SEED_MAPPING=0 on 4 reads of data/bench
+                 (43,743 full edges), each cut to its first FRONTIER_LEN
+                 bases (the decode is bound by its per-position launches,
+                 so the cut halves its time): the evolving-frontier decode
                  (n_warmup 16, bfloat16 stored tables); the same gates on
                  the first read.
 11. small_infer -- the CLI's ``sim-infer -K 41 -I 1`` on u500(8), in this
                  process: K1 ran, no twin did, no likelihood is NaN, the
                  per-k files exist; the stage lines with decode_s and the
                  ``# assembled=`` line.
+12. speed_test -- the benchmark (``dbgphmm_tpu_torch.bench.main``, what
+                 ``speed-test`` runs) in this process: the synthetic and the
+                 real-graph K1 parts at its full shapes, the fwd-bwd decode
+                 at its B = 384 reads cut to SPEED_FB_L bases (the full
+                 length runs in ``speed-test`` itself); K1 launched in both
+                 scorer parts, no twin ran, every value finite and
+                 positive; the three lines as the benchmark prints them.
 
 The CPU float64 mappings of phases 6, 9 and 10 and the batch phase's
 float64 score run in a child process (this script with
@@ -954,6 +963,8 @@ def u500_argv(n_unit, prefix):
 U500 = {"dense": 3, "adaptive": 8}  # phase: --n-unit
 REF_READS = {"refine": 4, "dense": 4, "adaptive": 4, "frontier": 1}  # held to f64
 FRONTIER_READS = 4
+FRONTIER_LEN = 5000  # bases of each frontier read (about half of one)
+SPEED_FB_L = 1000  # bases of each read of speed_test's fwd-bwd part
 BATCH_READS = 4
 
 
@@ -1024,6 +1035,7 @@ def cpu_reference(tmp):
         reads = list(Dataset.from_json_file(js).reads)[:REF_READS[name]]
         if name == "frontier":
             os.environ["DBGPHMM_SEED_MAPPING"] = "0"
+            reads = [r[:FRONTIER_LEN] for r in reads]
         dbg = out.from_dbg_file(dbg_path)
         maps = generate_mappings(dbg, params, reads, "cpu")
         save_reference(tmp, name, read_logps=maps.read_logps,
@@ -1072,9 +1084,10 @@ def cpu_reference_of(proc, tmp, name):
 
 
 def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
-                 n_reads=None, env=None):
-    """generate_mappings from scratch on the GPU; the decode branch it took;
-    the first reads against the CPU's float64 decode."""
+                 n_reads=None, read_len=None, env=None):
+    """generate_mappings from scratch on the GPU (the first ``n_reads``
+    reads, each cut to ``read_len`` bases if given); the decode branch it
+    took; the first reads against the CPU's float64 decode."""
     import numpy as np
 
     from dbgphmm_tpu_torch.e2e import Dataset
@@ -1084,7 +1097,7 @@ def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
     t0 = time.perf_counter()
     ds = Dataset.from_json_file(json_path)
     dbg = out.from_dbg_file(dbg_path)
-    reads = list(ds.reads)[:n_reads]
+    reads = [r[:read_len] for r in list(ds.reads)[:n_reads]]
     calls = []
 
     def recording(fn):
@@ -1239,6 +1252,48 @@ def phase_batch(device, params, json_path, dbg_path, reads_fa, dense_maps,
          seconds=secs, max_rel_diff=errs, cpu_f64_s=float(ref["seconds"]))
 
 
+def phase_speed_test(device):
+    """``bench.main`` in this process: the two K1 parts at the benchmark's
+    full shapes, the fwd-bwd part at B = 384 reads of SPEED_FB_L bases.
+    Each part's launch counters are set to 0 just before it and read just
+    after: K1 launched in both scorer parts, no twin ran anywhere."""
+    import numpy as np
+
+    from dbgphmm_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    parts = ("run_synthetic", "run_fwd_bwd", "run_real_graph")
+    real = {name: getattr(bench, name) for name in parts}
+    counts, secs = {}, {}
+
+    def counting(name):
+        def wrapped(*a, **kw):
+            reset_counters()
+            t1 = time.perf_counter()
+            out = real[name](*a, **kw)
+            secs[name] = time.perf_counter() - t1
+            counts[name] = read_counters()
+            return out
+        return wrapped
+
+    try:
+        for name in parts:
+            setattr(bench, name, counting(name))
+        lines = bench.main(device=device, fb_L=SPEED_FB_L)
+    finally:
+        for name, fn in real.items():
+            setattr(bench, name, fn)
+    for name in ("run_synthetic", "run_real_graph"):
+        assert counts[name][0]["K1"] > 0, (name, counts[name])
+    assert not any(v for _l, twins in counts.values() for v in twins.values()), counts
+    assert [ln["metric"] for ln in lines][-1] == \
+        "torch_real_graph_k1_scorings_per_sec_k40", lines
+    assert all(np.isfinite(ln["value"]) and ln["value"] > 0 for ln in lines), lines
+    emit("speed_test", t0, part_s=secs,
+         k1_launches={n: c[0]["K1"] for n, c in counts.items()},
+         values={ln["metric"]: ln["value"] for ln in lines})
+
+
 def main():
     t0 = time.perf_counter()
     import torch
@@ -1313,9 +1368,11 @@ def main():
             phase_decode("adaptive", device, params, *u["adaptive"], ref_proc, tmp)
             phase_decode("frontier", device, params, bench_json, bench_dbg,
                          ref_proc, tmp, n_reads=FRONTIER_READS,
+                         read_len=FRONTIER_LEN,
                          env={"DBGPHMM_SEED_MAPPING": "0"})
             launches["K1"], _ = run_sim_infer("small_infer", *u["adaptive"], 41,
                                               (40, 41))
+            phase_speed_test(device)
         finally:
             if ref_proc.poll() is None:
                 ref_proc.kill()

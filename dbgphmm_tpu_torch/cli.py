@@ -4,13 +4,16 @@ experiment binaries).
 Commands and flags follow the JAX package's CLI (``dbgphmm_tpu/cli.py``):
 ``raw-dbg``, ``draft``, ``infer``, ``euler``, ``sim-draft``, ``sim-infer``,
 ``sample``, ``mapping``, ``freq``, ``table``, ``edit-dist``,
-``modify-dbg``, ``inspect``, ``sample-from-true`` and ``extend-mapping``,
-and they write the same files.  The commands that run the PHMM take
-``--device`` (default ``cuda``): a CUDA run needs a visible GPU, and when
+``modify-dbg``, ``inspect``, ``sample-from-true``, ``extend-mapping`` and
+``speed-test`` (:mod:`dbgphmm_tpu_torch.bench`), and they write the same
+files.  The commands that run the PHMM take ``--device`` (default
+``cuda``): a CUDA run needs a visible GPU, and when
 ``torch.cuda.is_available()`` is False the command exits non-zero with a
 message; only an explicit ``--device cpu`` runs the float64 CPU path.
-The JAX CLI's ``--cpu``, ``--mesh`` and ``--dist`` (multi-device) and
-``speed-test`` (the bench) have no counterpart yet.
+The JAX CLI's ``--cpu``, ``--mesh`` and ``--dist`` (multi-device) have no
+counterpart yet.  SIGUSR1 makes the process dump every thread's stack to
+stderr and carry on (``faulthandler``), so that a supervisor
+(``dbgphmm_tpu_torch/scripts/sim.sh``) can see where a silent run stands.
 
     python -m dbgphmm_tpu_torch sim-draft -k 40 --unit-size 500 --n-unit 8 \
         --unit-seed 0 --div-init 0.02 --div-seed 1 --end-length 300 -P 2 \
@@ -23,6 +26,7 @@ The JAX CLI's ``--cpu``, ``--mesh`` and ``--dist`` (multi-device) and
     python -m dbgphmm_tpu_torch inspect -d data/bench/data.dbg \
         data/bench/data.json -o out/inspect
     python -m dbgphmm_tpu_torch table -d draft.dbg reads.fa
+    python -m dbgphmm_tpu_torch speed-test
 
 Mappings are decoded by the graph's size (``multi_dbg.posterior.
 generate_mappings``): dense up to 4,000 full edges, sparse-adaptive up to
@@ -34,7 +38,10 @@ decode, refine, scorer setup, scoring, host) and scorings per second.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
+import signal
+import sys
 import time
 
 import torch
@@ -489,6 +496,14 @@ def cmd_sim_infer(args):
     return result
 
 
+def cmd_speed_test(args):
+    """(ref: bin/speed_test.rs) The throughput benchmark
+    (:func:`dbgphmm_tpu_torch.bench.main`, full shapes)."""
+    from . import bench
+
+    return bench.main(device=_resolve_device(args.device))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dbgphmm_tpu_torch",
@@ -655,6 +670,10 @@ def build_parser() -> argparse.ArgumentParser:
     em.add_argument("-o", "--output-prefix", required=True)
     device_flag(em)
     em.set_defaults(fn=cmd_extend_mapping)
+
+    st = sub.add_parser("speed-test", help="throughput benchmark")
+    device_flag(st)
+    st.set_defaults(fn=cmd_speed_test)
     return p
 
 
@@ -662,7 +681,13 @@ def main(argv=None):
     """Parse ``argv`` and run the command; returns the command's result
     (infer / sim-infer: (dbg, posterior, per-stage times); inspect: the two
     Scores; sample / sample-from-true: the Posterior; sim-draft: the
-    Dataset; mapping: the Mappings; table: the per-read scores)."""
+    Dataset; mapping: the Mappings; table: the per-read scores; speed-test:
+    the benchmark's lines)."""
+    # SIGUSR1 -> every thread's stack on the process's stderr, and the run
+    # goes on: how a supervisor (or a person) sees where a silent run is
+    # stuck (sys.__stderr__: a caller may have swapped sys.stderr for a
+    # stream without a file descriptor)
+    faulthandler.register(signal.SIGUSR1, file=sys.__stderr__, all_threads=True)
     args = build_parser().parse_args(argv)
     t0 = time.time()
     print(f"# started_at={time.strftime('%Y-%m-%d %H:%M:%S')}")

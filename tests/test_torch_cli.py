@@ -49,7 +49,7 @@ HOST_ONLY = ("euler", "raw-dbg", "draft", "sim-draft", "edit-dist", "modify-dbg"
 @pytest.mark.parametrize("command", [
     "infer", "sim-infer", "euler", "inspect", "sample", "sample-from-true",
     "raw-dbg", "draft", "sim-draft", "mapping", "freq", "table", "edit-dist",
-    "modify-dbg", "extend-mapping"])
+    "modify-dbg", "extend-mapping", "speed-test"])
 def test_cli_takes_the_jax_cli_flags(command):
     """Every flag of the JAX CLI's subcommand is accepted; --device is the
     one addition, on every command that runs the PHMM."""
@@ -75,6 +75,7 @@ def test_cli_takes_the_jax_cli_flags(command):
      "reads.fa"],
     ["sample-from-true", "data/bench/data.json", "-k", "40", "-o", "unused"],
     ["table", "-d", "data/bench/data.dbg", "reads.fa"],
+    ["speed-test"],
 ])
 def test_cli_refuses_cuda_without_a_gpu(command):
     """Without --device cpu the CLI asks for CUDA; on a machine without a

@@ -391,3 +391,143 @@ def test_sample_posterior_gives_the_same_moves_in_every_scorer_space(
         np.testing.assert_allclose(s.score.likelihood,
                                    ref.find(s.copy_nums).score.likelihood,
                                    rtol=1e-6)
+
+
+def _tracking(P, monkeypatch, on_top=None):
+    """Wrap ``P.generate_mappings`` (the recursive calls too): returns the
+    list of regenerated read indices of each hinted top-level call, found
+    by identity among that call's reads.  ``on_top(i, dbg, hint, maps)``
+    sees each top-level call's result and may replace it."""
+    real = P.generate_mappings
+    regen, stack, n_top = [], [], [0]
+
+    def wrapped(dbg, params, reads, *a, **kw):
+        hint = kw.get("hint")
+        if stack and stack[0] is not None and hint is None:
+            outer = stack[0]
+            regen[-1].extend(next(i for i, r in enumerate(outer) if r is x)
+                             for x in reads)
+        if not stack and hint is not None:
+            regen.append([])
+        stack.append(list(reads) if hint is not None else None)
+        try:
+            maps = real(dbg, params, reads, *a, **kw)
+        finally:
+            stack.pop()
+        if not stack:
+            n_top[0] += 1
+            if on_top is not None:
+                maps = on_top(n_top[0] - 1, dbg, hint, maps)
+        return maps
+
+    monkeypatch.setattr(P, "generate_mappings", wrapped)
+    return regen
+
+
+def _infer_both(monkeypatch, capsys, patch, k_max=16):
+    """The small diploid, draft at k=8 -> ``k_max`` with hint mappings, in
+    both packages; ``patch(S)`` monkeypatches side S before its run.
+    Returns {side: (max_copy_nums per stage, exact, output, patch's
+    result)}."""
+    def build(S):
+        g = small_diploid(S.jax)
+        reads = perfect_reads(g, coverage=12, read_len=16, seed=1, jax=S.jax)
+        params = S.PHMMParams.uniform(0.001)
+        extra = patch(S)
+        stages = []
+        kw = dict(k_max=k_max, dbg_init=S.MultiDbg.from_styled_seqs(8, list(g)),
+                  param_infer=params, param_error=params, reads=reads,
+                  genome_size_expected=g.genome_size(), genome_size_sigma=5,
+                  max_iter=10, p0=0.8, n_haplotypes=2, use_hint_mappings=True,
+                  verbose=True,
+                  on_iter=lambda d, p, pa, m: stages.append(
+                      (d.k, p.max_copy_nums())))
+        if not S.jax:
+            kw["device"] = "cpu"
+        capsys.readouterr()
+        dbg_final, _post, _p, _m = S.P.infer_posterior_by_extension(**kw)
+        out = capsys.readouterr().out
+        monkeypatch.undo()
+        haps = sorted(s.seq for s, _c in dbg_final.get_linear_haplotype_seqs())
+        return stages, haps == sorted(s.seq for s in g), out, extra
+    got, ref = _both(build)
+    return {"torch": got, "jax": ref}
+
+
+def test_hint_gate_regenerates_the_same_reads_as_jax(monkeypatch, capsys):
+    """tests/test_posterior.py's hint-gate test in both packages: the
+    upconverted hints of every other read are zeroed (node 0 everywhere),
+    so the acceptance gate fires and regenerates those reads from scratch.
+    Both packages regenerate the same reads at every stage, reach the same
+    max_copy_nums at every stage, and assemble both haplotypes exactly."""
+    def patch(S):
+        real_pe = S.P.purge_and_extend_with_posterior
+        n_scrambled = [0]
+
+        def scrambling_pe(*args, **kwargs):
+            dbg_k, paths, maps2 = real_pe(*args, **kwargs)
+            if maps2 is not None:
+                for r in range(0, len(maps2), 2):
+                    if maps2[r].size:
+                        maps2[r][:] = 0
+                        n_scrambled[0] += 1
+            return dbg_k, paths, maps2
+
+        monkeypatch.setattr(S.P, "purge_and_extend_with_posterior",
+                            scrambling_pe)
+        return n_scrambled, _tracking(S.P, monkeypatch)
+
+    res = _infer_both(monkeypatch, capsys, patch)
+    for side, (stages, exact, out, (n_scrambled, regen)) in res.items():
+        assert n_scrambled[0] > 0, side
+        assert "hint gate: regenerating" in out, (side, out[-2000:])
+        assert any(regen), side
+        assert exact, side
+    assert res["torch"][3][1] == res["jax"][3][1]
+    assert res["torch"][0] == res["jax"][0]
+
+
+def test_blown_up_mapping_freqs_are_regenerated_from_scratch(monkeypatch,
+                                                             capsys):
+    """The guard after each stage's mapping: the first refined mapping
+    (the first extension's, k=8 -> 10) is handed back with a node freq above ``mass_cap_total()``; both
+    packages print the blown-up line and decode that stage from scratch.
+    The regenerated mapping equals a from-scratch ``generate_mappings`` of
+    the same stage, the port's equals the JAX package's, and both reach the
+    same max_copy_nums at every stage and an exact assembly."""
+    def patch(S):
+        seen = {}
+
+        def on_top(i, dbg, hint, maps):
+            if hint is not None and "blown" not in seen:
+                freqs = maps.to_node_freqs
+                blow = np.zeros(dbg.n_edges_full())
+                blow[0] = 10 * maps.mass_cap_total()
+                maps.to_node_freqs = lambda n: freqs(n) + blow[:n]
+                seen["blown"] = i
+            elif i == seen.get("blown", -2) + 1:
+                seen.update(dbg=dbg.copy(), maps=maps)
+            return maps
+
+        _tracking(S.P, monkeypatch, on_top)
+        return seen
+
+    res = _infer_both(monkeypatch, capsys, patch, k_max=10)
+    regenerated = {}
+    for side, (stages, exact, out, seen) in res.items():
+        assert "[infer] mapping freqs blown up" in out, (side, out[-2000:])
+        assert seen["blown"] == 1, side  # the first extension's refine
+        assert seen["dbg"].k == stages[1][0] == 10, side
+        assert exact, side
+        maps = seen["maps"]
+        assert maps.stages_since_anchor == 0, side  # from scratch
+        S = SimpleNamespace(jax=side == "jax")
+        params = (jax_params if S.jax else port_params).PHMMParams.uniform(0.001)
+        reads = perfect_reads(small_diploid(S.jax), coverage=12, read_len=16,
+                              seed=1, jax=S.jax)
+        fresh = (JP.generate_mappings(seen["dbg"], params, reads) if S.jax
+                 else TP.generate_mappings(seen["dbg"], params, reads, "cpu"))
+        _same_mappings(maps, fresh)
+        regenerated[side] = maps
+    _same_mappings(regenerated["torch"], regenerated["jax"])
+    assert res["torch"][0] == res["jax"][0]
