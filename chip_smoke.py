@@ -121,6 +121,30 @@ and the script exits non-zero:
                  scorer parts, no twin ran, every value finite and
                  positive; the three lines as the benchmark prints them.
 
+13. mesh_scorer -- right after k3_parity: K1, K2 and K3 through
+                 ``MappedScorer(mesh=)`` on a 2x2 mesh whose four shards
+                 all name the card, at the parity phases' main shape, held
+                 per read to the unsharded launches those phases made (0
+                 difference expected, the kernel gate the most allowed),
+                 launches = shards x read chunks, no twin; ms of the
+                 sharded and the unsharded (no mesh: the 1x1 mesh)
+                 scorer's per_read.
+14. mesh_path  -- right after batch: generate_mappings(mesh=1x2) on
+                 u500(3)'s first MESH_DECODE_READS reads against the same
+                 reads of dense_decode's unsharded decode (<= 1e-6
+                 relative, >= 99.9% equal top-1 nodes); sample_posterior(
+                 mesh=2x2, max_iter=1) on data/bench with the shared
+                 mapping against scorer_spaces' packed posterior (the same
+                 samples and max_copy_nums, likelihoods to 1e-5
+                 relative); ``dryrun.dryrun_multichip(4)`` on four copies
+                 of the card.
+15. dist       -- the CLI's ``sample`` on tests/test_multihost.py's toy
+                 (12 reads) in two ranks sharing the card (``--dist
+                 localhost:P,2,i --mesh 1x2``, gloo; child processes that
+                 print their scorer launches) and once alone: both ranks
+                 exit 0, each launched K1 (8 and 4 reads) and no twin,
+                 each rank's .post equals the single run's.
+
 The CPU float64 mappings of phases 6, 9 and 10 and the batch phase's
 float64 score run in a child process (this script with
 ``--cpu-reference``, 4 threads), started after ``datasets`` and joined by
@@ -394,7 +418,7 @@ def phase_k1_parity(device, params, ds, dbg, maps98):
     cands = [dbg.get_copy_nums()] + [cn for cn, _i in rescue[:15]]
     assert len(cands) == 16, f"only {len(cands) - 1} rescue candidates"
     assert len(scorer.chunks) == 1
-    s, dev_s = scorer.chunks[0], scorer._dev[0]
+    s, dev_s = scorer.chunks[0], scorer.block_streams(0)
     L, D, _, A = s.prevp.shape
     lt = T.lin_params(params, np.float64)
     on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
@@ -560,7 +584,7 @@ def rescue_shape(device, params, ds, dbg, maps98):
     eff, total = T._eff_matrix(scorer.chunks[0], cands)
     on = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     lt = T.lin_params(params, np.float32)
-    args = (on(eff), on(T.log_inv_total(total)), *scorer._dev[0],
+    args = (on(eff), on(T.log_inv_total(total)), *scorer.block_streams(0),
             torch.as_tensor(lt, device=device))
     return args, len(cands), len(reads)
 
@@ -712,6 +736,7 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size, rescue_args=None):
 
     emit(f"{kid.lower()}_parity", t0, ptxas=ptx, real=real_out,
          synthetic=synth, main_shape=main, **extra)
+    ctx[f"{kid.lower()}_full"] = out_f  # for mesh_scorer
     return dict(max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
                 bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
 
@@ -792,7 +817,7 @@ def phase_scorer_spaces(device, params, ds, dbg, maps98):
     moved = ref.max_copy_nums() != dbg.get_copy_nums()
     emit("scorer_spaces", t0, reads=n_reads, moved=moved,
          move=ref.max_sample().to_infos_string(), spaces=out)
-    return out
+    return out, ref
 
 
 def phase_inspect(device, json_path, dbg_path):
@@ -966,6 +991,7 @@ FRONTIER_READS = 4
 FRONTIER_LEN = 5000  # bases of each frontier read (about half of one)
 SPEED_FB_L = 1000  # bases of each read of speed_test's fwd-bwd part
 BATCH_READS = 4
+MESH_DECODE_READS = 8  # mesh_path's sharded decode of u500(3)
 
 
 def phase_datasets(tmp):
@@ -1294,6 +1320,228 @@ def phase_speed_test(device):
          values={ln["metric"]: ln["value"] for ln in lines})
 
 
+# -- the scale-out -------------------------------------------------------------
+
+
+def one_card_mesh(device, n, cand_axis):
+    """A ("cand", "reads") mesh of ``n`` shards that all name ``device``."""
+    from dbgphmm_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, cand_axis=cand_axis, devices=[device] * n)
+
+
+def phase_mesh_scorer(device, params, ctx):
+    """K1, K2 and K3 through MappedScorer(mesh=) on a 2x2 mesh of the one
+    card, at the parity phases' main shape (the draft's ~2,980 candidates
+    x 16 reads), against the unsharded launches those phases made: per
+    read the same scores (0 difference expected; the kernel gate is the
+    most allowed), the same -inf pattern and best candidate; launches =
+    shards x read chunks, no twin; ms of the sharded and the unsharded
+    (no mesh given: the 1x1 mesh) scorer's per_read (host work, launches
+    and copies)."""
+    import numpy as np
+
+    from dbgphmm_tpu_torch.ops import mapped_scorer as T
+
+    t0 = time.perf_counter()
+    mesh = one_card_mesh(device, 4, 2)
+    full, B, order = ctx["full"], ctx["B"], ctx["scorer"].order
+    out = {}
+    for kid, space in (("K1", "packed"), ("K2", "log"), ("K3", "linear")):
+        mk = lambda m: T.MappedScorer(ctx["tpl"], ctx["pos"], ctx["codes"],
+                                      ctx["lens"], params, device,
+                                      space=space, mesh=m)
+        sharded = mk(mesh)
+        reset_counters()
+        got = sharded.per_read(full)
+        launches, twins = read_counters()
+        n_chunks = len({b[0] for b in sharded.blocks})
+        assert launches[kid] == mesh.size * n_chunks, (kid, launches)
+        assert sum(launches.values()) == launches[kid], launches
+        assert not any(twins.values()), twins
+        ref = np.empty_like(got)
+        ref[:, order] = ctx[f"{kid.lower()}_full"][:, :B].double().cpu().numpy()
+        err = check_close(got, ref, f"{kid} on the 2x2 mesh")
+        same_best(got, ref, f"{kid} on the 2x2 mesh")
+        unsharded = mk(None)
+        out[kid] = dict(
+            launches=launches[kid], read_chunks=n_chunks,
+            blocks=[list(b) for b in sharded.blocks], max_abs_diff=err,
+            bit_equal=bool(np.array_equal(got, ref)),
+            sharded_ms=cuda_ms(lambda: sharded.per_read(full), 1),
+            unsharded_ms=cuda_ms(lambda: unsharded.per_read(full), 1))
+    emit("mesh_scorer", t0, mesh=mesh.shape, C=len(full), B=B, kernels=out)
+
+
+def phase_mesh_path(device, params, ds, dbg, maps98, post_packed, json_path,
+                    dbg_path, dense_maps):
+    """The sharded paths of the decodes and the climb on the one card:
+    generate_mappings(mesh=1x2) on u500(3)'s first MESH_DECODE_READS reads
+    against the same reads of dense_decode's unsharded decode (<= 1e-6
+    relative, >= 99.9% equal top-1 nodes; bit equality expected);
+    sample_posterior(mesh=2x2, max_iter=1) on data/bench with the shared
+    mapping against scorer_spaces' packed posterior (the same inputs): the
+    same samples and max_copy_nums, likelihoods within 1e-5 relative, K1
+    launched and no twin; dryrun_multichip(4) on four copies of the card."""
+    import numpy as np
+
+    from dbgphmm_tpu_torch import dryrun
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as mdo
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+
+    t0 = time.perf_counter()
+    out = {}
+    ds3, dbg3 = Dataset.from_json_file(json_path), mdo.from_dbg_file(dbg_path)
+    reads = list(ds3.reads)[:MESH_DECODE_READS]
+    mesh = one_card_mesh(device, 2, 1)
+    times = TP.StageTimes(k=dbg3.k)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        maps = TP.generate_mappings(dbg3, params, reads, device, times=times,
+                                    mesh=mesh)
+    ref = first_reads(dense_maps, len(reads))
+    rel = np.abs(maps.read_logps - ref.read_logps) / np.abs(ref.read_logps)
+    top1 = np.concatenate([a[:, 0] for a in maps.nodes])
+    top1_ref = np.concatenate([a[:, 0] for a in ref.nodes])
+    agree = float((top1 == top1_ref).mean())
+    assert np.isfinite(maps.read_logps).all(), maps.read_logps
+    assert rel.max() <= 1e-6 and agree >= 0.999, (rel.max(), agree)
+    same_nodes = all(
+        np.array_equal(a[:, :w], b[:, :w]) and (a[:, w:] < 0).all()
+        and (b[:, w:] < 0).all()
+        for a, b in zip(maps.nodes, ref.nodes)
+        for w in [min(a.shape[1], b.shape[1])])
+    out["decode"] = dict(
+        mesh=mesh.shape, reads=len(reads), decode_s=times.decode_s,
+        max_rel_logp_diff=float(rel.max()), top1_agree=agree,
+        bit_equal=bool(np.array_equal(maps.read_logps, ref.read_logps)
+                       and same_nodes),
+        log=[ln for ln in buf.getvalue().splitlines() if "[mappings]" in ln])
+
+    mesh = one_card_mesh(device, 4, 2)
+    times = TP.StageTimes(k=dbg.k)
+    reset_counters()
+    t1 = time.perf_counter()
+    post = TP.sample_posterior(dbg, params, list(ds.reads), maps98,
+                               ds.genome_size(), 100, device, max_iter=1,
+                               times=times, mesh=mesh)
+    wall = time.perf_counter() - t1
+    launches, twins = read_counters()
+    assert launches["K1"] > 0 and not any(twins.values()), (launches, twins)
+    assert post.max_copy_nums() == post_packed.max_copy_nums()
+    got = {tuple(x.copy_nums): x.score.likelihood for x in post.samples}
+    want = {tuple(x.copy_nums): x.score.likelihood for x in post_packed.samples}
+    assert set(got) == set(want), (len(got), len(want))
+    rels = [abs(got[k] - v) / abs(v) for k, v in want.items() if np.isfinite(v)]
+    assert all(np.isneginf(got[k]) for k, v in want.items() if np.isneginf(v))
+    assert max(rels) <= 1e-5, max(rels)
+    out["sample_posterior"] = dict(
+        mesh=mesh.shape, reads=len(ds.reads), samples=len(post.samples),
+        k1_launches=launches["K1"], wall_s=wall, score_s=times.score_s,
+        setup_s=times.setup_s, max_rel_likelihood_diff=float(max(rels)),
+        equal=all(got[k] == v for k, v in want.items()))
+
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        post = dryrun.dryrun_multichip(4, devices=[device] * 4)
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("dryrun_multichip OK")]
+    assert line and post.max_copy_nums() == [2, 1, 1, 2], buf.getvalue()[-2000:]
+    out["dryrun"] = dict(s=time.perf_counter() - t1, line=line[0])
+    emit("mesh_path", t0, **out)
+
+
+DIST_RANK = """
+import json, sys
+from dbgphmm_tpu_torch import cli
+from dbgphmm_tpu_torch.ops import mapped_scorer as T
+cli.main(sys.argv[1:])
+print("# launches " + json.dumps({n: getattr(T, n).launches for n in (
+    "mapped_scores_log", "mapped_scores_log_single", "mapped_scores_linear")})
+      + " twins " + json.dumps({n: getattr(T, n).calls for n in (
+    "mapped_scores_log_reference", "mapped_scores_log_single_reference",
+    "mapped_scores_linear_reference")}))
+"""
+
+
+def phase_dist(device, tmp):
+    """The CLI's ``sample`` on tests/test_multihost.py's toy (started one
+    +-1 cycle off the truth; 12 reads, so that each rank's half of the
+    "reads" axis holds reads: 8 and 4) in two ranks on the one card
+    (``--dist localhost:P,2,i --mesh 1x2``, gloo), each a child process
+    that prints its scorer launches, and once alone in this process: both
+    ranks exit 0, each launched K1 and no twin, and each rank's .post file
+    equals the single run's (times stripped)."""
+    import re
+    import socket
+
+    from dbgphmm_tpu_torch import cli
+    from dbgphmm_tpu_torch.multi_dbg import MultiDbg
+    from dbgphmm_tpu_torch.multi_dbg import output as mdo
+    from dbgphmm_tpu_torch.seq.collection import StyledSequence
+
+    t0 = time.perf_counter()
+    d = Path(tmp) / "dist"
+    d.mkdir()
+    h1 = b"TTAGGCTTCGATCGAATGCCAGGTTACGTAGGATCC"
+    h2 = b"TTAGGCTTGGATCGAATGCCAGGTTACGTAGGATCC"
+    dbg = MultiDbg.from_styled_seqs(
+        8, [StyledSequence.linear(h1), StyledSequence.linear(h2)])
+    dbg.set_copy_nums([2, 2, 0, 2])
+    mdo.to_dbg_file(dbg, d / "toy.dbg")
+    with open(d / "reads.fa", "w") as f:
+        for i, r in enumerate([h1[2:30], h2[3:33], h1[:28], h2[4:], h1[5:34],
+                               h2[:30], h1[1:31], h2[6:], h1[:33], h2[2:29],
+                               h1[4:], h2[1:35]]):
+            f.write(f">r{i}\n{r.decode()}\n")
+    common = ["sample", "-d", str(d / "toy.dbg"), "-G", str(len(h1)), "-I",
+              "5", str(d / "reads.fa"), "--device", device.type]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    # a rank whose peer failed stops well inside the 300 s wait below
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "DBGPHMM_DIST_TIMEOUT_S": "120"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_RANK, f"--dist=localhost:{port},2,{i}",
+         "--mesh", "1x2", *common, "-o", str(d / f"rank{i}")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {i} exited {p.returncode}:\n{o[-3000:]}"
+        m = re.search(r"# launches (\{.*\}) twins (\{.*\})", o)
+        assert m, o[-3000:]
+        launches, twins = json.loads(m.group(1)), json.loads(m.group(2))
+        assert not any(twins.values()), (i, twins)
+        assert launches["mapped_scores_log"] > 0, (i, launches)
+        ranks.append(launches)
+
+    reset_counters()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main([*common, "-o", str(d / "single")])
+    launches, twins = read_counters()
+    assert launches["K1"] > 0 and not any(twins.values()), (launches, twins)
+    strip = lambda t: re.sub(r'"time_[a-z]+":[0-9.e-]+', '"t":0', t)
+    single = strip((d / "single.post").read_text())
+    for i in range(2):
+        assert strip((d / f"rank{i}.post").read_text()) == single, i
+    emit("dist", t0, ranks=2, mesh="1x2", backend="gloo",
+         rank_launches=ranks,
+         single_k1_launches=launches["K1"],
+         samples=single.count("\nC\t"), post_equal=True)
+
+
 def main():
     t0 = time.perf_counter()
     import torch
@@ -1353,10 +1601,11 @@ def main():
                                      rescue_shape(device, params, ds, dbg, maps98))
             res["K3"] = phase_parity("K3", device, params, dbg, ctx,
                                      ds.genome_size())
+            phase_mesh_scorer(device, params, ctx)
             del ctx
             phase_refine(maps98, ref_proc, tmp)
-            spaces = phase_scorer_spaces(device, params, ds, dbg, maps98)
-            del maps98
+            spaces, post_packed = phase_scorer_spaces(device, params, ds, dbg,
+                                                      maps98)
             launches = {"K2": phase_inspect(device, *u["dense"]),
                         "K3": spaces["linear"]["launches"]["K3"]}
             dense_maps = phase_decode("dense", device, params, *u["dense"],
@@ -1364,7 +1613,10 @@ def main():
             phase_batch(device, params, *u["dense"],
                         Path(tmp) / f"u{U500['dense']}.reads.fa", dense_maps,
                         ref_proc, tmp)
-            del dense_maps
+            phase_mesh_path(device, params, ds, dbg, maps98, post_packed,
+                            *u["dense"], dense_maps)
+            del dense_maps, maps98, post_packed
+            phase_dist(device, tmp)
             phase_decode("adaptive", device, params, *u["adaptive"], ref_proc, tmp)
             phase_decode("frontier", device, params, bench_json, bench_dbg,
                          ref_proc, tmp, n_reads=FRONTIER_READS,

@@ -1,11 +1,12 @@
 """dbgphmm_tpu_torch — the PyTorch / CUDA port of dbgphmm_tpu.
 
-A second package beside the JAX one.  It runs the whole single-device
-inference path (mapping decodes, hint-constrained refine, exact-match
-seeding, candidate scoring, purge and extension) with PyTorch on one
-device: float64 on the CPU for parity with the JAX package, float32 on an
-NVIDIA Hopper GPU, where candidate scoring is the hand-written CUDA
-kernels ``csrc/mapped_scorer.cu`` and ``csrc/mapped_scorer_linear.cu``.
+A second package beside the JAX one.  It runs the whole inference path
+(mapping decodes, hint-constrained refine, exact-match seeding, candidate
+scoring, purge and extension) with PyTorch: float64 on the CPU for parity
+with the JAX package, float32 on an NVIDIA Hopper GPU, where candidate
+scoring is the hand-written CUDA kernels ``csrc/mapped_scorer.cu`` and
+``csrc/mapped_scorer_linear.cu``; on one device, or sharded over a
+("cand", "reads") mesh of devices and ``torch.distributed`` ranks.
 
 The host layers (sequences, k-mers, graphs, flow, seeding, neighbours,
 Euler counts, the PHMM model and template, read simulation, file formats)
@@ -27,7 +28,10 @@ Layers:
                         MappedScorer
   multi_dbg.posterior-- mappings, scoring, hill climb, k-extension loop
   multi_dbg.output   -- DBG / MAP / POST / GFA / INSPECT files on the port's types
-  cli                -- the JAX CLI's commands, plus --device
+  parallel           -- the ("cand", "reads") mesh, sharded puts and gathers,
+                        torch.distributed ranks over gloo (multihost)
+  cli                -- the JAX CLI's commands and --mesh / --dist, plus --device
+  dryrun             -- entry() and dryrun_multichip(), as __graft_entry__
 """
 
 __version__ = "0.1.0"

@@ -9,9 +9,15 @@ Commands and flags follow the JAX package's CLI (``dbgphmm_tpu/cli.py``):
 files.  The commands that run the PHMM take ``--device`` (default
 ``cuda``): a CUDA run needs a visible GPU, and when
 ``torch.cuda.is_available()`` is False the command exits non-zero with a
-message; only an explicit ``--device cpu`` runs the float64 CPU path.
-The JAX CLI's ``--cpu``, ``--mesh`` and ``--dist`` (multi-device) have no
-counterpart yet.  SIGUSR1 makes the process dump every thread's stack to
+message; only an explicit ``--device cpu`` runs the float64 CPU path (the
+JAX CLI's ``--cpu``).  The top-level ``--mesh CxR|N`` shards ``infer``,
+``sim-infer`` and ``sample`` over a ("cand", "reads") mesh of
+``--device``'s type (:mod:`dbgphmm_tpu_torch.parallel`); a mesh of more
+CUDA devices than are visible, or ``--mesh`` on another command, exits
+non-zero.  ``--dist ADDR:PORT,N,I`` joins N processes in a gloo group
+before the command runs; with ``--mesh`` the mesh spans every rank's
+devices, and each rank writes the files of a single run to its own
+``-o`` prefix.  SIGUSR1 makes the process dump every thread's stack to
 stderr and carry on (``faulthandler``), so that a supervisor
 (``dbgphmm_tpu_torch/scripts/sim.sh``) can see where a silent run stands.
 
@@ -27,6 +33,10 @@ stderr and carry on (``faulthandler``), so that a supervisor
         data/bench/data.json -o out/inspect
     python -m dbgphmm_tpu_torch table -d draft.dbg reads.fa
     python -m dbgphmm_tpu_torch speed-test
+    python -m dbgphmm_tpu_torch --mesh 2x4 sim-infer u500.json -d u500.dbg \
+        -o out/run -K 41 -I 1
+    CUDA_VISIBLE_DEVICES=1 python -m dbgphmm_tpu_torch \
+        --dist host0:12345,2,1 --mesh 1x2 sample -d g.dbg -o r1 -G 1000 r.fa
 
 Mappings are decoded by the graph's size (``multi_dbg.posterior.
 generate_mappings``): dense up to 4,000 full edges, sparse-adaptive up to
@@ -56,6 +66,24 @@ def _resolve_device(name: str) -> torch.device:
             "--device cpu to run the float64 CPU path"
         )
     return dev
+
+
+MESH_COMMANDS = ("infer", "sim-infer", "sample")  # those that take --mesh
+
+
+def _make_mesh_from_arg(spec, device):
+    """--mesh 'CxR' or 'N' -> a ("cand", "reads") mesh of ``device``'s type
+    (under --dist, over every rank's devices), or None.  A mesh the
+    devices cannot hold exits non-zero."""
+    if not spec:
+        return None
+    from .parallel.sharding import make_mesh
+
+    try:
+        c, r = (int(v) for v in spec.split("x", 1)) if "x" in spec else (1, int(spec))
+        return make_mesh(c * r, cand_axis=c, device=device)
+    except ValueError as e:
+        raise SystemExit(f"dbgphmm_tpu_torch: --mesh {spec}: {e}") from None
 
 
 def _true_compact_copy_nums(dbg_k, paths):
@@ -108,6 +136,7 @@ def _run_inference(dbg, reads, args, device, paths_true=None, mappings=None):
         mappings=mappings,
         verbose=True,
         stage_times=stage_times,
+        mesh=_make_mesh_from_arg(args.mesh, device),
     )
     for st in stage_times:
         print(f"# stage {json.dumps(st.as_dict())}")
@@ -262,14 +291,15 @@ def cmd_inspect(args):
 
 
 def _sample_and_write(dbg, params, reads, genome_size, args, device,
-                      rescue_only, copy_nums_true=None):
+                      rescue_only, copy_nums_true=None, mesh=None):
     from .multi_dbg import output as out
     from .multi_dbg.posterior import generate_mappings, sample_posterior
 
-    mappings = generate_mappings(dbg, params, reads, device)
+    mappings = generate_mappings(dbg, params, reads, device, mesh=mesh)
     post = sample_posterior(
         dbg, params, reads, mappings, genome_size, args.genome_size_sigma,
-        device, max_iter=args.max_iter, rescue_only=rescue_only, verbose=True)
+        device, max_iter=args.max_iter, rescue_only=rescue_only, verbose=True,
+        mesh=mesh)
     out.to_inspect_file(dbg, f"{args.output_prefix}.inspect", post,
                         copy_nums_true)
     out.to_post_file(post, f"{args.output_prefix}.post")
@@ -289,7 +319,8 @@ def cmd_sample(args):
     dbg = out.from_dbg_file(args.dbg_input)
     post = _sample_and_write(dbg, PHMMParams.uniform(args.p_error), reads,
                              args.genome_size, args, device,
-                             rescue_only=not args.full)
+                             rescue_only=not args.full,
+                             mesh=_make_mesh_from_arg(args.mesh, device))
     print(f"# wrote {args.output_prefix}.post/.inspect "
           f"({len(post.samples)} samples, best p={post.max_sample().score.p():.3f})")
     return post
@@ -509,6 +540,24 @@ def build_parser() -> argparse.ArgumentParser:
         prog="dbgphmm_tpu_torch",
         description="Bayesian genome assembler, PyTorch/CUDA port",
     )
+    p.add_argument(
+        "--dist", default=None, metavar="ADDR:PORT,N,I",
+        help="multi-process launch: rank 0's host:port, the total process"
+             " count and this process's rank, joined in a gloo group ("
+             "',,' reads torchrun's MASTER_ADDR / MASTER_PORT / WORLD_SIZE"
+             " / RANK). Combine with --mesh to span every rank's devices;"
+             " pin one GPU per rank with CUDA_VISIBLE_DEVICES. A rank whose"
+             " peer failed stops after DBGPHMM_DIST_TIMEOUT_S seconds at"
+             " most (default 1800).",
+    )
+    p.add_argument(
+        "--mesh", default=None, metavar="CxR",
+        help="shard over a device mesh of --device's type: 'CxR'"
+             " (candidates x reads, e.g. 2x4) or a device count N"
+             " (reads-sharded 1xN); replaces the reference's -t thread"
+             " count (rayon read fan-out). Taken by infer, sim-infer and"
+             " sample.",
+    )
     sub = p.add_subparsers(dest="command", required=True)
 
     def device_flag(sp):
@@ -689,6 +738,14 @@ def main(argv=None):
     # stream without a file descriptor)
     faulthandler.register(signal.SIGUSR1, file=sys.__stderr__, all_threads=True)
     args = build_parser().parse_args(argv)
+    if args.mesh and args.command not in MESH_COMMANDS:
+        raise SystemExit(f"dbgphmm_tpu_torch: --mesh is taken by "
+                         f"{', '.join(MESH_COMMANDS)}, not {args.command}")
+    if args.dist:
+        from .parallel.multihost import initialize, parse_dist_arg
+
+        initialize(*((None, None, None) if args.dist.strip(",") == ""
+                     else parse_dist_arg(args.dist)))
     t0 = time.time()
     print(f"# started_at={time.strftime('%Y-%m-%d %H:%M:%S')}")
     print("# version=dbgphmm_tpu_torch")
@@ -696,4 +753,6 @@ def main(argv=None):
     result = args.fn(args)
     print(f"# finished_at={time.strftime('%Y-%m-%d %H:%M:%S')} "
           f"elapsed={time.time()-t0:.1f}s")
+    if args.dist:
+        torch.distributed.destroy_process_group()
     return result

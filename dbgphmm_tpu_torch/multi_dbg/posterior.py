@@ -14,15 +14,19 @@ posterior decode up to ``DENSE_MAPPING_MAX_NODES`` full edges, the
 dense-compute / compact-store sparse-adaptive decode up to
 ``DENSE_COMPUTE_MAX_NODES``, and beyond that exact-match seeding plus the
 refine (or, with ``DBGPHMM_SEED_MAPPING=0``, the evolving-frontier
-decode); with a ``hint`` the decode is the hint-constrained refine.  The
-TPU-specific crash/revival machinery and the XLA fallback scorer of the
-JAX module have no counterpart.
+decode); with a ``hint`` the decode is the hint-constrained refine.
+Every entry point takes ``mesh`` (a :class:`~dbgphmm_tpu_torch.parallel.
+Mesh`), as the JAX module's do: the decodes shard the reads over every
+mesh device, the scorers candidates x reads.  The TPU-specific
+crash/revival machinery and the XLA fallback scorer of the JAX module
+have no counterpart.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -33,11 +37,18 @@ import torch
 from ..graph.euler import EulerCache
 from ..hist import DiscreteDistribution
 from ..ops.adaptive import mappings_refine, mappings_sparse_adaptive
-from ..ops.batch import candidate_log_likelihoods
+from ..ops.batch import _pad_reads_axis, candidate_log_likelihoods
 from ..ops.forward import (bucketize, default_dtype, node_freqs_and_mappings,
                            pad_reads, to_device)
 from ..ops.mapped_scorer import MappedScorer
 from ..ops.sparse import pad_mappings, precompute_positions
+from ..parallel.sharding import (
+    agree_min,
+    gather_to_host,
+    local_mesh,
+    put_read_sharded,
+    put_replicated,
+)
 from ..phmm.params import PHMMParams
 from ..phmm.template import make_template
 from ..prob import NEG_INF, ladd, normal_bin_logp
@@ -76,17 +87,23 @@ def seeded_mapping_enabled() -> bool:
     return os.environ.get("DBGPHMM_SEED_MAPPING", "1") != "0"
 
 
-def _dense_read_chunk(n_nodes: int, L: int, device, dtype) -> Tuple[Optional[int], int]:
+def _dense_read_chunk(n_nodes: int, L: int, dtype, mesh
+                      ) -> Tuple[Optional[int], int]:
     """(reads per chunk, bytes of forward tables per read) of the dense
-    decode of a graph of ``n_nodes`` full edges on reads padded to L: the
-    tables of a chunk take at most DENSE_TABLE_SHARE of the device's free
-    memory (``torch.cuda.mem_get_info``).  No limit (None) off CUDA."""
-    device = torch.device(device)
+    decode of a graph of ``n_nodes`` full edges on reads padded to L over
+    ``mesh``: the tables of a chunk take at most DENSE_TABLE_SHARE of a
+    device's free memory (``torch.cuda.mem_get_info``).  Each shard
+    decodes its block of the chunk on its own device, one shard at a time,
+    so the chunk is the mesh size times what the device with the least
+    free memory holds (the least over every rank of a mesh across ranks,
+    so that all ranks chunk alike).  No limit (None) off CUDA."""
     per_read = 3 * L * bucketize(n_nodes) * torch.finfo(dtype).bits // 8
-    if device.type != "cuda":
+    if mesh.device_type != "cuda":
         return None, per_read
-    free, _total = torch.cuda.mem_get_info(device)
-    return max(1, int(free * DENSE_TABLE_SHARE) // max(per_read, 1)), per_read
+    fit = min((max(1, int(torch.cuda.mem_get_info(d)[0] * DENSE_TABLE_SHARE)
+                   // max(per_read, 1)) for d in mesh.owned_devices()),
+              default=sys.maxsize)  # a rank that holds no shard limits nothing
+    return agree_min(fit, mesh) * mesh.size, per_read
 
 
 # -- per-stage timing ---------------------------------------------------------
@@ -116,9 +133,11 @@ class StageTimes:
         return d
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(device: torch.device, mesh=None) -> None:
+    """Wait for ``device`` (every device of ``mesh`` this process holds)."""
+    for d in [device] if mesh is None else mesh.owned_devices():
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 # -- mappings -----------------------------------------------------------------
@@ -202,6 +221,7 @@ def generate_mappings(
     pad_to: Optional[int] = None,
     hint_regen: bool = True,
     times: Optional[StageTimes] = None,
+    mesh=None,
 ) -> Mappings:
     """Per-base active nodes by score ratio under a top-k cap
     (ref: posterior.rs:609-637 generate_mappings; hint.rs:193-220).
@@ -218,8 +238,17 @@ def generate_mappings(
     a read whose constrained likelihood is non-finite, below ~-5
     nats/base, or more than ``hint_gate`` nats below its previous / anchor
     likelihood is regenerated from scratch (or, with ``hint_regen=False``,
-    kept and reported)."""
+    kept and reported).
+
+    ``mesh`` (default the 1 x 1 mesh of ``device``): the reads of each
+    pass are sharded over every mesh device (the decodes have no
+    candidate axis) and the graph is replicated: each shard decodes its block on its device (under
+    ``torch.distributed``, the rank holding the device does), and the
+    blocks are gathered to the host in read order, so every rank holds
+    the same mappings; a block of padding only is not decoded.  The read
+    chunk of the dense decode holds per device (:func:`_dense_read_chunk`)."""
     device = torch.device(device)
+    mesh = local_mesh(device) if mesh is None else mesh
     if dtype is None:
         dtype = default_dtype(device)
     if max_ratio == "default":
@@ -238,7 +267,7 @@ def generate_mappings(
             dbg, params, reads, device, n_active=n_active, dtype=dtype,
             max_ratio=max_ratio, hint=seeds, hint_gate=hint_gate,
             verbose=verbose, read_chunk=read_chunk, pad_to=pad_to,
-            hint_regen=False, times=times,
+            hint_regen=False, times=times, mesh=mesh,
         )
 
     if read_chunk == MAPPING_READ_CHUNK and hint is None \
@@ -246,7 +275,7 @@ def generate_mappings(
         read_chunk = FRONTIER_READ_CHUNK  # compact bfloat16 tables
     if read_chunk and hint is None and n <= DENSE_MAPPING_MAX_NODES:
         L = pad_to or max(len(r) for r in reads)
-        fit, per_read = _dense_read_chunk(n, L, device, dtype)
+        fit, per_read = _dense_read_chunk(n, L, dtype, mesh)
         if fit is not None:
             read_chunk = min(read_chunk, fit)
             b = min(read_chunk, len(reads))
@@ -270,7 +299,7 @@ def generate_mappings(
                 dbg, params, reads_l[sl], device, n_active=n_active,
                 dtype=dtype, max_ratio=max_ratio, hint=sub_hint,
                 hint_gate=hint_gate, verbose=verbose, read_chunk=0,
-                pad_to=L_max, hint_regen=hint_regen, times=times,
+                pad_to=L_max, hint_regen=hint_regen, times=times, mesh=mesh,
             ))
         return Mappings(
             [a for p in parts for a in p.nodes],
@@ -282,42 +311,42 @@ def generate_mappings(
 
     t0 = time.perf_counter()
     model = dbg.to_phmm(params, mode="non_zero")
-    dm = to_device(model, device, dtype)
     codes, lens = pad_reads(list(reads), pad_to=pad_to)
     n_reads = codes.shape[0]
-    on_dev = lambda a: torch.as_tensor(a, device=device)
-    codes_d, lens_d = on_dev(codes), on_dev(lens)
-    if hint is not None:
-        hint_arr = _pad_hint_nodes(hint, codes.shape[1], 2 * n_active)
-        logp, map_nodes, map_logp = mappings_refine(
-            dm, codes_d, lens_d, on_dev(hint_arr),
-            n_active=n_active, max_ratio=max_ratio,
-        )
-    elif n <= DENSE_MAPPING_MAX_NODES:
-        logp, _freqs, map_nodes, map_logp = node_freqs_and_mappings(
-            dm, codes_d, lens_d, renorm=True, n_active=n_active,
-            max_ratio=max_ratio,
-        )
-    else:
+    hint_arr = (None if hint is None
+                else _pad_hint_nodes(hint, codes.shape[1], 2 * n_active))
+
+    def decode(dm, codes_d, lens_d, hint_d):
+        """(logp [B], map_nodes [B, L, k], map_logp) of one batch on dm's
+        device, by the branch the graph's size (or the hint) picks."""
+        if hint_d is not None:
+            return mappings_refine(dm, codes_d, lens_d, hint_d,
+                                   n_active=n_active, max_ratio=max_ratio)
+        if n <= DENSE_MAPPING_MAX_NODES:
+            logp, _freqs, mn_d, ml_d = node_freqs_and_mappings(
+                dm, codes_d, lens_d, renorm=True, n_active=n_active,
+                max_ratio=max_ratio,
+            )
+            return logp, mn_d, ml_d
         stored_k, store_bf16 = None, False
         if n <= DENSE_COMPUTE_MAX_NODES:
             # dense compute, ~256 stored cells (n_top * (D + 1))
             D = int(dm.parent_idx.shape[1])
-            n_top, n_warmup = max(40, 256 // (D + 1)), int(codes.shape[1])
+            n_top, n_warmup = max(40, 256 // (D + 1)), int(codes_d.shape[1])
         else:
             # the frontier: stored tables trimmed to the decode's width,
             # in bfloat16 when computing in float32
             n_top, n_warmup = max(ADAPTIVE_FRONTIER_TOP, -(-n_active // 2)), 16
             stored_k = max(n_active, ADAPTIVE_FRONTIER_TOP)
             store_bf16 = dtype == torch.float32
-        logp, map_nodes, map_logp = mappings_sparse_adaptive(
+        return mappings_sparse_adaptive(
             dm, codes_d, lens_d, n_top=n_top, n_active=n_active,
             max_ratio=max_ratio, n_warmup=n_warmup, stored_k=stored_k,
             store_bf16=store_bf16,
         )
-    read_logps = logp.to("cpu", torch.float64).numpy()[:n_reads]
-    mn = map_nodes.cpu().numpy()[:n_reads]
-    ml = map_logp.cpu().numpy()[:n_reads]
+
+    read_logps, mn, ml = _decode_sharded(
+        decode, to_device(model, "cpu", dtype), codes, lens, hint_arr, mesh)
     if times is not None:
         dt = time.perf_counter() - t0
         if hint is None:
@@ -366,7 +395,7 @@ def generate_mappings(
         fresh = generate_mappings(
             dbg, params, [reads[int(i)] for i in idx], device,
             n_active=n_active, dtype=dtype, max_ratio=max_ratio,
-            pad_to=codes.shape[1], times=times,
+            pad_to=codes.shape[1], times=times, mesh=mesh,
         )
         for j, i in enumerate(idx):
             nodes[int(i)] = fresh.nodes[j]
@@ -376,6 +405,35 @@ def generate_mappings(
 
     return Mappings(nodes, logps, read_logps, anchor_out,
                     hint.stages_since_anchor + 1, gate_rate)
+
+
+def _decode_sharded(decode, dm, codes: np.ndarray, lens: np.ndarray,
+                    hint_arr: Optional[np.ndarray], mesh):
+    """(read_logps float64 [B], map_nodes [B, L, k], map_logp) of
+    ``decode`` with the reads sharded flat over every mesh device (padded
+    to a multiple of the mesh size, as in the JAX package) and ``dm``
+    replicated.  Each shard decodes its block's real reads on its device;
+    every decode is issued before the first copy to the host."""
+    n_shard, B = mesh.size, codes.shape[0]
+    per = -(-B // n_shard)
+    put = lambda a, fill: put_read_sharded(mesh, _pad_reads_axis(a, n_shard, fill), 0)
+    codes_b, lens_b = put(codes, -1), put(lens, 0)
+    hint_b = [None] * n_shard if hint_arr is None else put(hint_arr, -1)
+    dms = put_replicated(mesh, dm)
+    parts = []
+    for i in range(n_shard):
+        real = min(per, B - i * per)
+        if real <= 0:
+            break  # the rest of the shards hold padding only
+        if dms[i] is None:
+            parts += [None, None, None]
+            continue
+        logp, mn_d, ml_d = decode(dms[i], codes_b[i][:real], lens_b[i][:real],
+                                  None if hint_b[i] is None else hint_b[i][:real])
+        parts += [logp.to(torch.float64), mn_d, ml_d]
+    got = gather_to_host(parts, mesh)
+    return (np.concatenate(got[0::3]), np.concatenate(got[1::3]),
+            np.concatenate(got[2::3]))
 
 
 # -- score --------------------------------------------------------------------
@@ -489,11 +547,12 @@ class _CompactFlow:
 
 
 def make_scorer(template, positions, codes, lens, params, device,
-                 space: str = "packed") -> MappedScorer:
+                 space: str = "packed", mesh=None) -> MappedScorer:
     """The candidate scorer of one k-stage (ref: ``make_pallas_scorer``):
-    K1 ("packed", the default), K2 ("log") or K3 ("linear")."""
+    K1 ("packed", the default), K2 ("log") or K3 ("linear"), sharded
+    candidates x reads over ``mesh`` when given."""
     return MappedScorer(template, positions, codes, lens, params, device,
-                        space=space)
+                        space=space, mesh=mesh)
 
 
 class BatchScorer:
@@ -501,15 +560,18 @@ class BatchScorer:
     candidate's model from the template, scored by
     ``candidate_log_likelihoods`` (the dense forward, candidates stacked)
     in sub-batches of ``SUB`` candidates (ref: the JAX package's
-    ``score_candidates`` fallback, without its crash ladder).  A log-space
-    -inf is exact, so nothing is rescored."""
+    ``score_candidates`` fallback, without its crash ladder), sharded
+    candidates x reads over ``mesh`` when given.  A log-space -inf is
+    exact, so nothing is rescored."""
 
     space = "dense"
     SUB = 32
 
-    def __init__(self, template, codes: np.ndarray, lens: np.ndarray, device):
+    def __init__(self, template, codes: np.ndarray, lens: np.ndarray, device,
+                 mesh=None):
         self.template, self.codes, self.lens = template, codes, lens
         self.device = torch.device(device)
+        self.mesh = mesh
         self.n_reads = codes.shape[0]
 
     def scores_detailed(self, candidates) -> Tuple[np.ndarray, np.ndarray]:
@@ -520,7 +582,7 @@ class BatchScorer:
             chunk = candidates[c0:c0 + self.SUB]
             lls[c0:c0 + len(chunk)] = candidate_log_likelihoods(
                 [self.template.model_for(cn) for cn in chunk], self.codes,
-                self.lens, self.device)
+                self.lens, self.device, mesh=self.mesh)
         return lls, np.isfinite(lls)
 
 
@@ -531,6 +593,7 @@ def score_candidates(
     genome_size_sigma: int,
     scorer,
     times: Optional[StageTimes] = None,
+    mesh=None,
 ) -> List[Score]:
     """Score a batch of copy-number candidates: read likelihoods from the
     scorer (a :class:`MappedScorer`, one call for the whole batch, or a
@@ -539,7 +602,12 @@ def score_candidates(
     A linear-space scorer underflows to -inf on reads forced across copy-0
     edges; every candidate it flags is rescored by its log-space sibling,
     whose very low but finite sums steer the early climb.  A log-space
-    -inf is exact, so "log" and "packed" results are never rescored."""
+    -inf is exact, so "log" and "packed" results are never rescored.
+
+    The scorer carries its mesh, set at construction; ``mesh``, when
+    given, must be that mesh (the rescue shares the scorer's shards)."""
+    if mesh is not None and mesh is not scorer.mesh:
+        raise ValueError("score_candidates: the scorer was built on another mesh")
     t0 = time.perf_counter()
     lls, ok = scorer.scores_detailed(candidates)
     bad = (np.flatnonzero(~ok) if scorer.space == "linear"
@@ -592,13 +660,15 @@ def sample_posterior(
     verbose: bool = False,
     times: Optional[StageTimes] = None,
     scorer_space: str = "packed",
+    mesh=None,
 ) -> Posterior:
     """Greedy hill climb from the DBG's copy numbers: score rescue (and,
     with ``rescue_only=False``, short/long/reducer) neighbours, move to the
     best, repeat up to ``max_iter`` moves.  With ``mappings`` the scorer is
     a :class:`MappedScorer` whose kernel ``scorer_space`` picks
     (:func:`make_scorer`); without, a :class:`BatchScorer` (the dense
-    forward; rescue neighbours then see uniform node freqs)."""
+    forward; rescue neighbours then see uniform node freqs).  Either
+    scorer shards candidates x reads over ``mesh`` when given."""
     device = torch.device(device)
     if neighbor_config is None:
         neighbor_config = NeighborConfig()
@@ -613,7 +683,7 @@ def sample_posterior(
     template = make_template(dbg, params)
     if mappings is None:
         freqs = np.ones(dbg.n_edges_full())
-        scorer = BatchScorer(template, codes, lens, device)
+        scorer = BatchScorer(template, codes, lens, device, mesh=mesh)
         what = "dense batch scorer"
     else:
         freqs = mappings.to_node_freqs(dbg.n_edges_full())
@@ -634,10 +704,10 @@ def sample_posterior(
             map_nodes, template.parent_idx, parent_exists=template.parent_exists
         )
         scorer = make_scorer(template, positions, codes, lens, template.params,
-                             device, space=scorer_space)
+                             device, space=scorer_space, mesh=mesh)
         what = f"positions and scorer streams (width={width}, " \
                f"{len(scorer.chunks)} read chunk(s))"
-    _sync(device)
+    _sync(device, mesh)
     t_setup = time.perf_counter() - t0
     if times is not None:
         times.setup_s += t_setup
@@ -646,7 +716,7 @@ def sample_posterior(
 
     def score(cands):
         return score_candidates(work, cands, genome_size_expected,
-                                genome_size_sigma, scorer, times)
+                                genome_size_sigma, scorer, times, mesh=mesh)
 
     def evaluate_batch(cands_infos, infos_init):
         seen = set()
@@ -793,6 +863,7 @@ def infer_posterior_by_extension(
     use_hint_mappings: bool = True,
     stage_times: Optional[List[StageTimes]] = None,
     scorer_space: str = "packed",
+    mesh=None,
 ):
     """Per k: hill-climb the copy numbers, purge likely-zero edges, extend
     to k+1, regenerate mappings, re-initialise copy numbers from mapping
@@ -801,7 +872,7 @@ def infer_posterior_by_extension(
 
     ``stage_times`` (a list) receives one :class:`StageTimes` per k-stage
     and one for the final pass (``k`` = -1).  ``scorer_space`` is passed to
-    every :func:`sample_posterior`."""
+    every :func:`sample_posterior`, ``mesh`` to every decode and climb."""
     log = (lambda *a: print("[infer]", *a)) if verbose else (lambda *a: None)
     device = torch.device(device)
     dbg = dbg_init.copy()
@@ -809,7 +880,7 @@ def infer_posterior_by_extension(
     times = StageTimes(k=dbg.k)
     if mappings is None:
         mappings = generate_mappings(dbg, param_error, reads, device,
-                                     times=times)
+                                     times=times, mesh=mesh)
     coverage = sum(len(r) for r in reads) / genome_size_expected
 
     def close_stage(next_k: int) -> StageTimes:
@@ -827,7 +898,7 @@ def infer_posterior_by_extension(
             dbg, param_infer, reads, mappings, genome_size_expected,
             genome_size_sigma, device, neighbor_config, max_iter,
             rescue_only=True, verbose=verbose, times=times,
-            scorer_space=scorer_space,
+            scorer_space=scorer_space, mesh=mesh,
         )
         dbg.set_copy_nums(posterior.max_copy_nums())
         log(f"k={dbg.k} posterior sampled in {time.perf_counter()-t0:.1f}s "
@@ -872,7 +943,7 @@ def infer_posterior_by_extension(
             )
         mappings = generate_mappings(
             dbg, param_error, reads, device, hint=hint_m, verbose=verbose,
-            times=times,
+            times=times, mesh=mesh,
         )
         log(f"mappings {'refined' if hint_m is not None else 'regenerated'} "
             f"in {time.perf_counter()-t0:.1f}s")
@@ -885,7 +956,8 @@ def infer_posterior_by_extension(
             print(f"[infer] mapping freqs blown up (max {freqs.max():.0f} "
                   f"> {limit:.0f}); regenerating mappings from scratch")
             mappings = generate_mappings(dbg, param_error, reads, device,
-                                         verbose=verbose, times=times)
+                                         verbose=verbose, times=times,
+                                         mesh=mesh)
             freqs = mappings.to_node_freqs(dbg.n_edges_full())
         # the reference hardcodes 2 haplotypes here (posterior.rs:798); the
         # count is fixed only when a terminal node exists
@@ -900,12 +972,13 @@ def infer_posterior_by_extension(
 
     # final full-neighbourhood sampling with the error params
     times = close_stage(-1)
-    mappings = generate_mappings(dbg, param_error, reads, device, times=times)
+    mappings = generate_mappings(dbg, param_error, reads, device, times=times,
+                                 mesh=mesh)
     posterior = sample_posterior(
         dbg, param_error, reads, mappings, genome_size_expected,
         genome_size_sigma, device, neighbor_config, max_iter,
         rescue_only=False, verbose=verbose, times=times,
-        scorer_space=scorer_space,
+        scorer_space=scorer_space, mesh=mesh,
     )
     dbg.set_copy_nums(posterior.max_copy_nums())
     close_stage(-1)

@@ -15,9 +15,12 @@ The kernels, each the Hopper port of a Pallas kernel, with its twin:
 
 For tensors on the CPU a wrapper runs its twin (``*_reference``), the same
 recursion in plain PyTorch; for CUDA tensors it launches the kernel or
-raises.  The TPU-only machinery of the Pallas scorer (lane packing P, the
-CL / vmem_div back-off ladder, the launch watchdog, crash dumps) has no
-counterpart here.
+raises.  ``MappedScorer(mesh=)`` takes the place of the two ``shard_map``
+wrappers (``pallas_mapped_scores_sharded`` :1234,
+``pallas_mapped_scores_packed_sharded`` :1276): one launch per shard and
+read chunk on the shard's device.  The TPU-only machinery of the Pallas
+scorer (lane packing P, the CL / vmem_div back-off ladder, the launch
+watchdog, crash dumps) has no counterpart here.
 
 Stream layouts (position-major, the D axis split out):
 
@@ -39,6 +42,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.sharding import gather_to_host, local_mesh, put_replicated
 from . import _build
 from .forward import default_dtype
 
@@ -681,15 +685,33 @@ class MappedScorer:
     so that read chunks stay width-homogeneous), chunked to bound the
     device stream footprint, and each chunk's compact-edge ids are trimmed
     to the ones it references.  Each chunk's result is cut to the batch's
-    candidate count before the chunks are joined."""
+    candidate count before the chunks are joined.
+
+    ``mesh`` (a :class:`~dbgphmm_tpu_torch.parallel.Mesh`, the counterpart
+    of ``PallasMappedScorer(mesh=)`` and its two ``shard_map`` wrappers;
+    default the 1 x 1 mesh of ``device``): each read chunk is split along
+    the mesh's "reads" axis into blocks of a multiple of 8 reads (``b_pad
+    = 8 R``), and each block's streams are built and uploaded once, at
+    construction, to the devices of the shards that read it (under
+    ``torch.distributed``, only by the rank that holds them).  Each call splits the candidates along "cand"
+    (padded to a multiple of its size with copies of candidate 0), launches
+    the kernel once per shard and read chunk on the shard's device — every
+    launch before the first copy to the host — and gathers the [C, B]
+    blocks in the original read order.  A block with no read, or a
+    candidate row group of padding only, launches nothing."""
 
     def __init__(self, template, positions, codes: np.ndarray,
                  lens: np.ndarray, params, device, read_chunk: int = None,
-                 space: str = "packed"):
+                 space: str = "packed", mesh=None):
         if space not in SPACES:
             raise ValueError(f"space must be one of {SPACES}, not {space!r}")
         self.space = space
         self.device = torch.device(device)
+        mesh = local_mesh(self.device) if mesh is None else mesh
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {self.device.type} scorer on a "
+                             f"{mesh.device_type} mesh")
+        self.mesh = mesh
         self.dtype = default_dtype(self.device)
         self.n_max_gaps = params.n_max_gaps
         B, L = codes.shape
@@ -713,27 +735,42 @@ class MappedScorer:
         lens = np.asarray(lens)[order]
         pos = [np.asarray(a)[order] for a in positions]
 
-        b_pad = 8
+        n_cs, n_rs = mesh.shape["cand"], mesh.shape["reads"]
+        b_pad = 8 * n_rs
         A0 = pos[0].shape[2]
         A_est = max(16, 1 << max(0, (A0 - 1)).bit_length())
         D_est = template.parent_idx.shape[1]
         per_read = L * A_est * (3 + 3 * D_est) * 4  # bytes of int32 streams
         rc = read_chunk or max(b_pad, int(9e9 // max(per_read, 1)) // b_pad * b_pad)
         rc = -(-rc // b_pad) * b_pad
-        chunks, self.chunk_reads = [], []
-        for c0 in range(0, B, rc):
+        # the read blocks, (chunk, reads-axis index r, first sorted read,
+        # reads): each chunk, padded to b_pad, split into n_rs equal blocks
+        self.blocks = []
+        for ci, c0 in enumerate(range(0, B, rc)):
             c1 = min(B, c0 + rc)
-            # cut the chunk's slot axis to its own widest used slot, so a
-            # chunk of narrow reads runs at a narrow power-of-two A
+            per = -(-(c1 - c0) // b_pad) * b_pad // n_rs
+            for r in range(n_rs):
+                lo = min(c1, c0 + r * per)
+                self.blocks.append((ci, r, lo, min(c1, lo + per) - lo))
+        # the blocks this process builds: those with reads that a shard it
+        # holds reads
+        self.local_blocks = [
+            u for u, (_ci, r, _lo, nb) in enumerate(self.blocks)
+            if nb and any(mesh.owns(g * n_rs + r) for g in range(n_cs))]
+        chunks = []
+        for u in self.local_blocks:
+            _ci, _r, c0, nb = self.blocks[u]
+            c1 = c0 + nb
+            # cut the block's slot axis to its own widest used slot, so a
+            # block of narrow reads runs at a narrow power-of-two A
             used = (pos[0][c0:c1] >= 0).any(axis=(0, 1))
             w = int(np.flatnonzero(used).max(initial=0)) + 1
             pos_c = type(positions)(*[a[c0:c1, :, :w] for a in pos])
             chunks.append(build_streams(template, pos_c, codes[c0:c1],
-                                        lens[c0:c1], b_pad=b_pad))
-            self.chunk_reads.append(c1 - c0)
+                                        lens[c0:c1], b_pad=8))
 
         # unify the degree across chunks; each chunk keeps its own pow2 width
-        d_star = max(s.prevp.shape[1] for s in chunks)
+        d_star = max((s.prevp.shape[1] for s in chunks), default=1)
         for ci, s in enumerate(chunks):
             d_c, a_c = s.prevp.shape[1], s.emis.shape[2]
             a_star = max(16, 1 << (a_c - 1).bit_length())
@@ -765,7 +802,7 @@ class MappedScorer:
             useds.append(u[(u >= 0) & (u != SENT)].astype(np.int64))
         n_used = max((len(u) for u in useds), default=0)
         nc_star = max(128, 1 << int(np.ceil(np.log2(n_used + 2))))
-        if nc_star < chunks[0].nc_pad:
+        if chunks and nc_star < chunks[0].nc_pad:
             ce_dt = np.int16 if nc_star <= 32768 else np.int32
             for ci, s in enumerate(chunks):
                 u = useds[ci]
@@ -779,16 +816,30 @@ class MappedScorer:
                 )
         self.chunks = chunks
         np_dt = np.float64 if self.dtype == torch.float64 else np.float32
-        self.lt_lin = torch.as_tensor(lin_params(params, np_dt), device=self.device)
-        self._dev = [self._upload(s) for s in chunks]
+        lt = lin_params(params, np_dt)
+        # per local block, its streams on each device of the shards that
+        # hold it (one upload per distinct device); the constants on every
+        # device this process holds
+        self._lt = put_replicated(mesh, lt)
+        self._dev = []
+        for u, s in zip(self.local_blocks, chunks):
+            r = self.blocks[u][1]
+            devs = {mesh.devices[g, r] for g in range(n_cs)
+                    if mesh.owns(g * n_rs + r)}
+            self._dev.append({d: self._upload(s, d) for d in devs})
 
-    def _upload(self, s: MappedStreams) -> Tuple[torch.Tensor, ...]:
-        """The chunk's lens and streams as contiguous int32 tensors on the
-        device (narrow host arrays travel as they are and widen there)."""
+    def block_streams(self, k: int) -> Tuple[torch.Tensor, ...]:
+        """The device streams of this process's k-th read block, on the
+        first device that holds them (the kernels' stream arguments)."""
+        return next(iter(self._dev[k].values()))
+
+    def _upload(self, s: MappedStreams, device) -> Tuple[torch.Tensor, ...]:
+        """The chunk's lens and streams as contiguous int32 tensors on
+        ``device`` (narrow host arrays travel as they are and widen there)."""
         arrs = (s.lens, s.codes, s.emis, s.numce, s.selfp, s.prevp, s.curp,
                 s.dence)
         return tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
             .to(torch.int32).contiguous() for a in arrs
         )
 
@@ -801,23 +852,44 @@ class MappedScorer:
 
     def per_read(self, candidates: Sequence[Sequence[int]]) -> np.ndarray:
         """[C, B] float64 per-read log-likelihoods, reads in the ORIGINAL
-        order."""
-        C = len(candidates)
+        order: one launch per shard and read block, all launched, then
+        gathered (across ranks too)."""
         kernel = {"packed": mapped_scores_log, "log": mapped_scores_log_single,
                   "linear": mapped_scores_linear}[self.space]
         inv_of = lin_inv_total if self.space == "linear" else log_inv_total
-        parts = []
-        for s, dev_s, nb in zip(self.chunks, self._dev, self.chunk_reads):
-            eff, total = _eff_matrix(s, candidates)
-            eff_t = torch.as_tensor(eff, dtype=self.dtype, device=self.device)
-            inv_t = torch.as_tensor(inv_of(total), dtype=self.dtype,
-                                    device=self.device)
-            out = kernel(eff_t, inv_t, *dev_s, self.lt_lin,
-                         n_max_gaps=self.n_max_gaps)
-            parts.append(out[:C, :nb])
-        sorted_scores = torch.cat(parts, dim=1).to("cpu", torch.float64).numpy()
-        per_read = np.empty_like(sorted_scores)
-        per_read[:, self.order] = sorted_scores
+        mesh = self.mesh
+        n_cs, n_rs = mesh.shape["cand"], mesh.shape["reads"]
+        C = len(candidates)
+        per = -(-C // n_cs)
+        cands = list(candidates) + [candidates[0]] * (per * n_cs - C)
+        # one conversion of the lists: every read block reads each group
+        cands = np.asarray(cands, dtype=np.float32)
+        rows = [max(0, min(C, (g + 1) * per) - g * per) for g in range(n_cs)]
+        local = {u: k for k, u in enumerate(self.local_blocks)}
+        outs = []
+        for u, (_ci, r, _lo, nb) in enumerate(self.blocks):
+            for g in range(n_cs):
+                i = g * n_rs + r
+                if not nb or not rows[g]:
+                    outs.append(np.empty((rows[g], nb)))  # nothing to launch
+                    continue
+                if not mesh.owns(i):
+                    outs.append(None)
+                    continue
+                dev = mesh.devices.flat[i]
+                s = self.chunks[local[u]]
+                eff, total = _eff_matrix(s, cands[g * per:(g + 1) * per])
+                eff_t = torch.as_tensor(eff, dtype=self.dtype, device=dev)
+                inv_t = torch.as_tensor(inv_of(total), dtype=self.dtype,
+                                        device=dev)
+                out = kernel(eff_t, inv_t, *self._dev[local[u]][dev],
+                             self._lt[i], n_max_gaps=self.n_max_gaps)
+                outs.append(out[:rows[g], :nb])
+        blocks = iter(gather_to_host(outs, mesh))
+        per_read = np.empty((C, self.n_reads), dtype=np.float64)
+        for _ci, _r, lo, nb in self.blocks:
+            for g in range(n_cs):
+                per_read[g * per:g * per + rows[g], self.order[lo:lo + nb]] = next(blocks)
         return per_read
 
     def scores_detailed(self, candidates) -> Tuple[np.ndarray, np.ndarray]:

@@ -47,22 +47,48 @@ HOST_ONLY = ("euler", "raw-dbg", "draft", "sim-draft", "edit-dist", "modify-dbg"
 
 
 @pytest.mark.parametrize("command", [
-    "infer", "sim-infer", "euler", "inspect", "sample", "sample-from-true",
-    "raw-dbg", "draft", "sim-draft", "mapping", "freq", "table", "edit-dist",
-    "modify-dbg", "extend-mapping", "speed-test"])
+    None, "infer", "sim-infer", "euler", "inspect", "sample",
+    "sample-from-true", "raw-dbg", "draft", "sim-draft", "mapping", "freq",
+    "table", "edit-dist", "modify-dbg", "extend-mapping", "speed-test"])
 def test_cli_takes_the_jax_cli_flags(command):
     """Every flag of the JAX CLI's subcommand is accepted; --device is the
-    one addition, on every command that runs the PHMM."""
-    ours = _options(_subparser(cli.build_parser(), command))
-    ref = _options(_subparser(jax_cli.build_parser(), command))
+    one addition, on every command that runs the PHMM.  At the top level
+    (``None``) the JAX CLI's --mesh and --dist, with the same defaults; its
+    --cpu is each command's ``--device cpu`` here."""
+    of = ((lambda parser: parser) if command is None
+          else (lambda parser: _subparser(parser, command)))
+    ours = _options(of(cli.build_parser()))
+    ref = _options(of(jax_cli.build_parser()))
+    if command is None:
+        assert {"--mesh", "--dist"} <= ref
+        ref = ref - {"--cpu"}
     assert ref <= ours
-    extra = set() if command in HOST_ONLY else {"--device"}
+    extra = set() if command in HOST_ONLY + (None,) else {"--device"}
     assert ours - ref == extra
-    defaults = lambda parser: {a.dest: a.default for a in
-                               _subparser(parser, command)._actions}
+    defaults = lambda parser: {a.dest: a.default for a in of(parser)._actions}
     ref_d = defaults(jax_cli.build_parser())
+    ref_d.pop("cpu", None)
     assert {k: v for k, v in defaults(cli.build_parser()).items()
             if k in ref_d} == ref_d
+
+
+def test_cli_mesh_refuses_what_the_devices_cannot_hold(tmp_path):
+    """--mesh is taken by infer, sim-infer and sample only; a mesh of more
+    CUDA devices than are visible exits non-zero with a message (it is
+    never shrunk nor moved to the CPU)."""
+    with pytest.raises(SystemExit, match="--mesh is taken by infer"):
+        cli.main(["--mesh", "2", "table", "-d", "unused.dbg", "reads.fa",
+                  "--device", "cpu"])
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"--mesh {n}: a mesh of {n} CUDA"):
+        cli._make_mesh_from_arg(str(n), torch.device("cuda"))
+    mesh = cli._make_mesh_from_arg("2x3", torch.device("cpu"))
+    assert mesh.shape == {"cand": 2, "reads": 3}
+    assert cli._make_mesh_from_arg("4", torch.device("cpu")).shape == {
+        "cand": 1, "reads": 4}
+    assert cli._make_mesh_from_arg(None, torch.device("cpu")) is None
+    with pytest.raises(SystemExit, match="--mesh 2x: "):
+        cli._make_mesh_from_arg("2x", torch.device("cpu"))
 
 
 @pytest.mark.parametrize("command", [

@@ -273,3 +273,47 @@ def test_seeded_scorer_on_gpu_matches_cpu(cuda):
             np.testing.assert_array_equal(np.isfinite(per["cpu"]), fin)
         assert (np.abs(per["cuda"] - per["cpu"])[fin]
                 <= 1e-5 * np.abs(per["cpu"][fin]) + 0.05).all(), space
+
+
+def test_sharded_paths_on_one_card_match_unsharded(cuda):
+    """On a mesh whose shards all name the one card: MappedScorer over a
+    2x2 mesh launches each kernel once per shard and returns the unsharded
+    scores (the kernel gate at most, equality expected), and the refine
+    over a 1x2 mesh returns the unsharded mappings (1e-6 relative)."""
+    from dbgphmm_tpu_torch.parallel import make_mesh
+
+    g = G.tandem_repeat_polyploid_with_unique_homo_ends(
+        50, 4, 0, 0.02, 0, 100, 2, 0.01, 0)
+    ds = generate_dataset(g, 0, 6, 200, ReadType.FIXED_SIZE_FRAGMENT,
+                          PHMMParams.uniform(0.005))
+    dbg = MultiDbg.from_styled_seqs(16, list(g))
+    reads = list(ds.reads)[:12]
+    params = PHMMParams.uniform(0.005)
+    seeds = seed_mappings_arrays(dbg, reads)
+    hint = TP.Mappings(seeds, [np.zeros(a.shape) for a in seeds], None, None, -1)
+    maps = [TP.generate_mappings(dbg, params, reads, cuda, hint=hint,
+                                 hint_regen=False, mesh=mesh)
+            for mesh in (None, make_mesh(2, devices=[cuda] * 2))]
+    np.testing.assert_allclose(maps[1].read_logps, maps[0].read_logps,
+                               rtol=1e-6)
+    codes, lens = pad_reads(reads)
+    tpl = make_template(dbg, params)
+    mn = pad_mappings(maps[0], codes.shape[1], 32)
+    pos = precompute_positions(mn, tpl.parent_idx,
+                               parent_exists=tpl.parent_exists)
+    cands = [dbg.get_copy_nums(), [1] * dbg.n_edges_compact()] * 3
+    mesh = make_mesh(4, cand_axis=2, devices=[cuda] * 4)
+    for space, wrapper in zip(T.SPACES, (T.mapped_scores_log,
+                                         T.mapped_scores_log_single,
+                                         T.mapped_scores_linear)):
+        local = T.MappedScorer(tpl, pos, codes, lens, params, cuda,
+                               space=space).per_read(cands)
+        sharded = T.MappedScorer(tpl, pos, codes, lens, params, cuda,
+                                 space=space, mesh=mesh)
+        n0 = wrapper.launches
+        got = sharded.per_read(cands)
+        assert wrapper.launches - n0 == sum(2 for b in sharded.blocks if b[3])
+        fin = np.isfinite(local)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        assert (np.abs(got - local)[fin]
+                <= 1e-5 * np.abs(local[fin]) + 0.05).all(), space

@@ -314,7 +314,7 @@ def bench_case():
     for cn in cands:
         cn[s.ce_ids[-30:]] = 0
     eff, total = T._eff_matrix(s, [cn.tolist() for cn in cands])
-    return dict(eff=eff, inv=T.lin_inv_total(total), streams=scorer._dev[0],
+    return dict(eff=eff, inv=T.lin_inv_total(total), streams=scorer.block_streams(0),
                 sentinel=s.nc_pad - 1)
 
 
