@@ -106,7 +106,7 @@ and the script exits non-zero:
 10. frontier_decode -- DBGPHMM_SEED_MAPPING=0 on 4 reads of data/bench
                  (43,743 full edges), each cut to its first FRONTIER_LEN
                  bases (the decode is bound by its per-position launches,
-                 so the cut halves its time): the evolving-frontier decode
+                 so its time follows the cut): the evolving-frontier decode
                  (n_warmup 16, bfloat16 stored tables); the same gates on
                  the first read.
 11. small_infer -- the CLI's ``sim-infer -K 41 -I 1`` on u500(8), in this
@@ -144,6 +144,21 @@ and the script exits non-zero:
                  print their scorer launches) and once alone: both ranks
                  exit 0, each launched K1 (8 and 4 reads) and no twin,
                  each rank's .post equals the single run's.
+
+16. tools      -- right after small_infer: each of the port's tools
+                 (dbgphmm_tpu_torch/scripts/, the JAX repo's scripts/) once
+                 on files the earlier phases wrote (infer's and small_infer's
+                 outputs and logs stay in the run's temporary directory):
+                 perk_budget, bench_real_graph on infer's k=40 checkpoint
+                 (K1 launched and no twin, counted around the tool alone;
+                 then 8 of its candidates on its streams' first
+                 TOOLS_TWIN_L positions held to the float64 twin on the
+                 card with K1's tolerance), diag_mapping_quality,
+                 audit_hint_upconversion and the two diag_hint_relation
+                 tools on small_infer's k=40 -> 41, dbgviz,
+                 visualize_inspect (where matplotlib is installed), and
+                 validate_large_n_mapping at 74,083 full edges on reads cut
+                 to 600 bases (its VERDICT line OK).
 
 The CPU float64 mappings of phases 6, 9 and 10 and the batch phase's
 float64 score run in a child process (this script with
@@ -888,12 +903,14 @@ def phase_inspect(device, json_path, dbg_path):
     return launches["K2"]
 
 
-def run_sim_infer(phase, json_path, dbg_path, k_max, ks):
-    """The port's CLI ``sim-infer <json> -d <dbg> -K k_max -I 1`` in this
-    process: the K1 kernel ran, no twin did, no likelihood is NaN, the
-    per-k files of ``ks`` exist; K1's launches in each stage.  Returns K1's
-    launches and the first stage's mapping of the draft (a dict: the
-    Mappings, its params, its seed and refine seconds)."""
+def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
+    """The port's CLI ``sim-infer <json> -d <dbg> -o <out_dir>/out -K k_max
+    -I 1`` in this process: the K1 kernel ran, no twin did, no likelihood
+    is NaN, the per-k files of ``ks`` exist; K1's launches in each stage.
+    The files and the CLI's log (``out.log``) stay in ``out_dir`` for the
+    tools phase.  Returns K1's launches and the first stage's mapping of
+    the draft (a dict: the Mappings, its params, its seed and refine
+    seconds)."""
     import numpy as np
 
     from dbgphmm_tpu_torch import cli
@@ -932,36 +949,37 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks):
                          refine_s=times.refine_s if times else None)
         return maps
 
-    with tempfile.TemporaryDirectory() as tmp:
-        prefix = os.path.join(tmp, "out")
-        argv = ["sim-infer", str(json_path), "-d", str(dbg_path), "-o", prefix,
-                "-K", str(k_max), "-I", "1"]
-        TP.sample_posterior = counting
-        TP.generate_mappings = capturing
-        reset_counters()
-        buf = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(buf):
-                dbg, post, stages = cli.main(argv)
-        except BaseException:
-            # the CLI's own log, for the failure's context
-            sys.stderr.write("\n".join(buf.getvalue().splitlines()[-60:]) + "\n")
-            raise
-        finally:
-            TP.sample_posterior = real_sample
-            TP.generate_mappings = real_generate
-        launches, twins = read_counters()
-        assert launches["K1"] > 0, f"{phase}: the K1 kernel never ran"
-        assert not any(twins.values()), f"{phase}: a twin ran on CUDA: {twins}"
-        lls = np.asarray([s.score.likelihood for s in post.samples])
-        assert not np.isnan(lls).any(), f"{phase}: NaN likelihood"
-        files = sorted(os.listdir(tmp))
-        for k in ks:
-            for ext in ("dbg", "map.mpz", "post", "gfa", "inspect"):
-                assert f"out.k{k}.{ext}" in files, f"{phase}: missing out.k{k}.{ext}"
-        assert "out.final.euler.fa" in files
-        tail = [ln for ln in buf.getvalue().splitlines()
-                if ln.startswith(("# assembled=", "[mappings] dense"))]
+    os.makedirs(out_dir)
+    prefix = os.path.join(out_dir, "out")
+    argv = ["sim-infer", str(json_path), "-d", str(dbg_path), "-o", prefix,
+            "-K", str(k_max), "-I", "1"]
+    TP.sample_posterior = counting
+    TP.generate_mappings = capturing
+    reset_counters()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            dbg, post, stages = cli.main(argv)
+    except BaseException:
+        # the CLI's own log, for the failure's context
+        sys.stderr.write("\n".join(buf.getvalue().splitlines()[-60:]) + "\n")
+        raise
+    finally:
+        TP.sample_posterior = real_sample
+        TP.generate_mappings = real_generate
+        Path(prefix + ".log").write_text(buf.getvalue())
+    launches, twins = read_counters()
+    assert launches["K1"] > 0, f"{phase}: the K1 kernel never ran"
+    assert not any(twins.values()), f"{phase}: a twin ran on CUDA: {twins}"
+    lls = np.asarray([s.score.likelihood for s in post.samples])
+    assert not np.isnan(lls).any(), f"{phase}: NaN likelihood"
+    files = sorted(os.listdir(out_dir))
+    for k in ks:
+        for ext in ("dbg", "map.mpz", "post", "gfa", "inspect"):
+            assert f"out.k{k}.{ext}" in files, f"{phase}: missing out.k{k}.{ext}"
+    assert "out.final.euler.fa" in files
+    tail = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith(("# assembled=", "[mappings] dense"))]
     assert sum(st["k1_launches"] for st in per_stage) == launches["K1"]
     emit(phase, t0, argv=argv[:1] + argv[4:], launches=launches["K1"],
          k1_launches_per_stage=per_stage,
@@ -988,7 +1006,7 @@ def u500_argv(n_unit, prefix):
 U500 = {"dense": 3, "adaptive": 8}  # phase: --n-unit
 REF_READS = {"refine": 4, "dense": 4, "adaptive": 4, "frontier": 1}  # held to f64
 FRONTIER_READS = 4
-FRONTIER_LEN = 5000  # bases of each frontier read (about half of one)
+FRONTIER_LEN = 2500  # bases of each frontier read (a quarter of one)
 SPEED_FB_L = 1000  # bases of each read of speed_test's fwd-bwd part
 BATCH_READS = 4
 MESH_DECODE_READS = 8  # mesh_path's sharded decode of u500(3)
@@ -1320,6 +1338,122 @@ def phase_speed_test(device):
          values={ln["metric"]: ln["value"] for ln in lines})
 
 
+TOOLS_VALIDATE = dict(reads=dict(length=600, min_length=300))  # cut from
+# 4,400 bases: its full run is dbgphmm_tpu_torch/scripts/scale_runs.sh r3
+TOOLS_TWIN_L = 2000  # read positions of the twin check (its time is per
+# position, not per read)
+
+
+def phase_tools(device, infer_json, tmp, ks=(40, 41)):
+    """Each of the port's tools (dbgphmm_tpu_torch/scripts/, the JAX repo's
+    scripts/) once, in this process, on files the earlier phases wrote:
+    ``perk_budget`` on infer's log; ``bench_real_graph`` on infer's k=40
+    (``ks[0]``) checkpoint of data/bench (the counters set to 0 just before
+    it and read just after: K1 launched, no twin; then K1 on the first 8 of
+    its candidates and the read block's streams, cut to their first
+    TOOLS_TWIN_L positions, held to the float64 twin on the card, per
+    read 1e-5 |ref| + 0.05 nats, the same best candidate);
+    ``diag_mapping_quality``, ``audit_hint_upconversion``,
+    ``diag_hint_relation`` and ``diag_hint_relation2`` on small_infer's
+    k=40 -> 41 checkpoints (u500(8); ``ks``); ``dbgviz`` on its final graph;
+    ``visualize_inspect`` on its two .inspect files (fails on the import
+    where matplotlib is not installed, which is recorded); and
+    ``validate_large_n_mapping`` at 74,083 full edges on reads cut to
+    TOOLS_VALIDATE (VERDICT: OK).  Seconds of each tool."""
+    import numpy as np
+    import torch
+
+    from dbgphmm_tpu_torch.ops import mapped_scorer as T
+    from dbgphmm_tpu_torch.phmm.params import PHMMParams
+    from dbgphmm_tpu_torch.scripts import (
+        audit_hint_upconversion, bench_real_graph, dbgviz,
+        diag_hint_relation, diag_hint_relation2, diag_mapping_quality,
+        perk_budget, validate_large_n_mapping, visualize_inspect)
+
+    t0 = time.perf_counter()
+    secs, lines = {}, {}
+
+    def run(name, fn, *args, **kw):
+        t1 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*args, **kw)
+        secs[name] = time.perf_counter() - t1
+        lines[name] = buf.getvalue().splitlines()
+        return res
+
+    inf, small = tmp / "infer" / "out", tmp / "small_infer" / "out"
+    k0, k1 = ks
+    run("perk_budget", perk_budget.main, [f"{inf}.log"])
+    assert lines["perk_budget"][0].startswith(f"k={k0} sampling_s="), \
+        lines["perk_budget"]
+
+    captured = []
+    real_setup = bench_real_graph.setup
+    bench_real_graph.setup = lambda *a, **kw: captured.append(
+        real_setup(*a, **kw)) or captured[-1]
+    reset_counters()
+    try:
+        rec = run("bench_real_graph", bench_real_graph.main,
+                  [f"{inf}.k{k0}.dbg", str(infer_json), f"{inf}.k{k0}.map.mpz",
+                   "--device", str(device)])
+    finally:
+        bench_real_graph.setup = real_setup
+    launches, twins = read_counters()
+    assert launches["K1"] > 0 and not any(twins.values()), (launches, twins)
+    assert np.isfinite(rec["value"]) and rec["value"] > 0, rec
+    _dbg, _reads, _w, scorer, cands = captured[0]
+    s, (lens, *streams) = scorer.chunks[0], scorer.block_streams(0)
+    # each read's first TOOLS_TWIN_L bases: the streams are position-major
+    dev_s = (lens.clamp(max=TOOLS_TWIN_L), *(t[:TOOLS_TWIN_L] for t in streams))
+    nb = scorer.blocks[scorer.local_blocks[0]][3]
+    eff, total = T._eff_matrix(s, np.asarray(cands[:8], dtype=np.float32))
+    lt = T.lin_params(PHMMParams.uniform(0.0003), np.float64)
+    args = lambda dt: (torch.as_tensor(eff, dtype=dt, device=device),
+                       torch.as_tensor(T.log_inv_total(total), dtype=dt,
+                                       device=device),
+                       *dev_s, torch.as_tensor(lt, dtype=dt, device=device))
+    kw = dict(n_max_gaps=scorer.n_max_gaps)
+    got = T.mapped_scores_log(*args(torch.float32), **kw)[:, :nb]
+    ref = T.mapped_scores_log_reference(*args(torch.float64), **kw)[:, :nb]
+    got, ref = got.double().cpu().numpy(), ref.cpu().numpy()
+    err = check_close(got, ref, "tools: bench_real_graph's K1")
+    same_best(got, ref, "tools: bench_real_graph's K1")
+    del captured, scorer, dev_s, streams
+
+    run("diag_mapping_quality", diag_mapping_quality.main,
+        [f"{small}.k{k0}.dbg", f"{small}.k{k0}.map.mpz"])
+    for name, mod in (("audit_hint_upconversion", audit_hint_upconversion),
+                      ("diag_hint_relation", diag_hint_relation),
+                      ("diag_hint_relation2", diag_hint_relation2)):
+        run(name, mod.main, [str(small), str(k0), str(k1)])
+    run("dbgviz", dbgviz.main, [f"{small}.final.dbg", "--inspect",
+                                f"{small}.final.inspect", "-o",
+                                str(tmp / "graph.html")])
+    assert "cytoscape" in (tmp / "graph.html").read_text()
+    try:
+        run("visualize_inspect", visualize_inspect.main,
+            [f"{small}.k{k0}.inspect", f"{small}.k{k1}.inspect", "-o",
+             str(tmp / "inspect.png")])
+        plot = "written"
+        assert (tmp / "inspect.png").stat().st_size > 0
+    except ModuleNotFoundError as e:
+        assert e.name == "matplotlib", e
+        plot = "matplotlib not installed"
+    val = run("validate_large_n_mapping", validate_large_n_mapping.main,
+              ["--device", str(device)], **TOOLS_VALIDATE)
+    assert val["ok"] and lines["validate_large_n_mapping"][-1] == "# VERDICT: OK"
+    emit("tools", t0, tool_s=secs, bench_real_graph=rec,
+         k1_launches=launches["K1"], k1_twin_max_abs_err=err,
+         k1_twin_shape=[int(eff.shape[0]), int(nb)],
+         perk_budget=lines["perk_budget"],
+         diag_mapping_quality=lines["diag_mapping_quality"][1:3],
+         audit_hint_upconversion=lines["audit_hint_upconversion"][-4:-1],
+         visualize_inspect=plot,
+         validate=dict(lines=lines["validate_large_n_mapping"][1:],
+                       dense_s=val["dense_s"], frontier_s=val["frontier_s"]))
+
+
 # -- the scale-out -------------------------------------------------------------
 
 
@@ -1590,7 +1724,8 @@ def main():
         try:
             u = {name: (Path(tmp) / f"u{n}.json", Path(tmp) / f"u{n}.dbg")
                  for name, n in U500.items()}
-            _, first = run_sim_infer("infer", bench_json, bench_dbg, 40, (40,))
+            _, first = run_sim_infer("infer", bench_json, bench_dbg, 40, (40,),
+                                     Path(tmp) / "infer")
             maps98 = phase_mapping(params, ds, first)
             del first
             res = {}
@@ -1623,7 +1758,8 @@ def main():
                          read_len=FRONTIER_LEN,
                          env={"DBGPHMM_SEED_MAPPING": "0"})
             launches["K1"], _ = run_sim_infer("small_infer", *u["adaptive"], 41,
-                                              (40, 41))
+                                              (40, 41), Path(tmp) / "small_infer")
+            phase_tools(device, bench_json, Path(tmp))
             phase_speed_test(device)
         finally:
             if ref_proc.poll() is None:
