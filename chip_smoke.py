@@ -8,21 +8,39 @@ and the script exits non-zero:
 
 1. device     -- a CUDA GPU is present; its name and power limit (nvidia-smi).
 2. build      -- builds the three scorer kernels (csrc/mapped_scorer.cu: K1
-                 and K2; csrc/mapped_scorer_linear.cu: K3; nvcc, sm_90a) and
-                 the four host libraries (csrc/host/*.cpp, g++) from the
-                 checkout's sources, one compiler process each, all at once,
-                 after deleting any library an earlier run left; prints each
-                 kernel instance's ptxas registers and spills.
+                 and K2; csrc/mapped_scorer_linear.cu: K3; nvcc, sm_90a), the
+                 refine's two scans (csrc/refine.cu: R1 and R2) and the four
+                 host libraries (csrc/host/*.cpp, g++) from the checkout's
+                 sources, one compiler process each, all at once, after
+                 deleting any library an earlier run left; prints each
+                 kernel instance's ptxas registers and spills (0 spills
+                 asserted for the ten R1 / R2 instances).
 3. infer      -- the port's CLI, ``sim-infer data/bench/data.json -d
                  data/bench/data.dbg -K 40 -I 1`` on all 98 reads (one
                  k-stage and the final full-neighbourhood pass; cut from
                  -K 41 to keep the smoke inside its time limit), in this
                  process so that the launch counters can be read: the K1
                  kernel ran, no twin did, no likelihood is NaN, the per-k
-                 files exist; K1's launches in each stage.
+                 files exist; K1's launches in each stage; every stage's
+                 seeded refine launched R1 and R2 (their launches per
+                 mapping), no plain version ran.
    mapping    -- the seeded + refined mapping of all 98 reads of the draft
                  that infer's first k-stage computed on the GPU (params of
-                 the CLI's default --p-error), shared by the phases below.
+                 the CLI's default --p-error; one read chunk: R1 and R2
+                 once each), shared by the phases below.
+   refine_parity -- R1 and R2 against their plain versions run on the card,
+                 on the seeded hint that mapping was refined from, for
+                 PARITY_READS reads cut to their first PARITY_L positions:
+                 in float64 R1's e and R2's map_logp to 1e-9 relative, the
+                 stored nodes and the -inf patterns equal, finite m / i / d
+                 to 1e-9; in float32 e and map_logp to 1e-5 (map_logp
+                 relative to max(|x|, |e of its read|, 1): it is F + B +
+                 offsets - log P(read), rounded like terms of that size);
+                 >= 99.9% equal top-1 nodes; R2 again on the frontier
+                 forward's bfloat16 tables.  R1 and R2 timed (float32, CUDA
+                 events) on all 98 reads at full length, beside their bound
+                 (refine_bound()), its share, and the plain versions' ms at
+                 the cut and at the full shape.
 4. k1_parity  -- K1 against its plain PyTorch twin run on the card in
                  float64: a real case (16 reads of the draft at full length,
                  the draft's copy numbers + 15 rescue candidates, NC trimmed
@@ -67,10 +85,10 @@ and the script exits non-zero:
                  98 reads).  K3's blocked candidate goes through
                  score_candidates with a linear scorer, which must rescue
                  it through K2.
-6. refine     -- the first 4 reads' mappings from ``mapping`` (GPU, float32)
-                 against the child's seeded + refined CPU ones (float64):
-                 read log-likelihoods to 1e-4 relative, >= 99% of
-                 positions with the same top-1 node.
+6. refine     -- the first 4 reads' mappings from ``mapping`` (GPU, float32:
+                 R1 and R2) against the child's seeded + refined CPU ones
+                 (float64, the plain versions): read log-likelihoods to 1e-4
+                 relative, >= 99% of positions with the same top-1 node.
 7. scorer_spaces -- sample_posterior(max_iter=1) on all 98 reads with the
                  shared mapping, once per scorer space ("packed" K1, "log"
                  K2, "linear" K3 with the rescue): the same accepted move and
@@ -88,8 +106,10 @@ and the script exits non-zero:
                  after the build (``datasets``): generate_mappings from
                  scratch on the GPU for all reads.  u500(3) (3,567 full
                  edges) must take the dense decode, u500(8) (8,358) the
-                 dense-compute sparse-adaptive one (n_warmup = L); the
-                 first 4 reads' result against the CPU's float64 decode
+                 dense-compute sparse-adaptive one (n_warmup = L; its
+                 decode is R2, launched once per call; the dense decode
+                 launches neither R1 nor R2); the first 4 reads' result
+                 against the CPU's float64 decode
                  (read log-likelihoods to 1e-4 relative, >= 99% equal
                  top-1 nodes); decode seconds, seconds per read base, the
                  dense read chunk and its forward tables' bytes.
@@ -107,8 +127,8 @@ and the script exits non-zero:
                  (43,743 full edges), each cut to its first FRONTIER_LEN
                  bases (the decode is bound by its per-position launches,
                  so its time follows the cut): the evolving-frontier decode
-                 (n_warmup 16, bfloat16 stored tables); the same gates on
-                 the first read.
+                 (n_warmup 16, bfloat16 stored tables, decoded by R2); the
+                 same gates on the first read.
 11. small_infer -- the CLI's ``sim-infer -K 41 -I 1`` on u500(8), in this
                  process: K1 ran, no twin did, no likelihood is NaN, the
                  per-k files exist; the stage lines with decode_s and the
@@ -118,7 +138,8 @@ and the script exits non-zero:
                  real-graph K1 parts at its full shapes, the fwd-bwd decode
                  at its B = 384 reads cut to SPEED_FB_L bases (the full
                  length runs in ``speed-test`` itself); K1 launched in both
-                 scorer parts, no twin ran, every value finite and
+                 scorer parts, R2 in the fwd-bwd part, no twin ran, every
+                 value finite and
                  positive; the three lines as the benchmark prints them.
 
 13. mesh_scorer -- right after k3_parity: K1, K2 and K3 through
@@ -132,7 +153,10 @@ and the script exits non-zero:
 14. mesh_path  -- right after batch: generate_mappings(mesh=1x2) on
                  u500(3)'s first MESH_DECODE_READS reads against the same
                  reads of dense_decode's unsharded decode (<= 1e-6
-                 relative, >= 99.9% equal top-1 nodes); sample_posterior(
+                 relative, >= 99.9% equal top-1 nodes); the seeded refine
+                 with mesh=1x2 on data/bench's first MESH_DECODE_READS reads
+                 against infer's mapping of them (the same gates; R1 and R2
+                 launched shards x read chunks times); sample_posterior(
                  mesh=2x2, max_iter=1) on data/bench with the shared
                  mapping against scorer_spaces' packed posterior (the same
                  samples and max_copy_nums, likelihoods to 1e-5
@@ -166,8 +190,9 @@ float64 score run in a child process (this script with
 the phases that read them.  Each path's launch counters are set to 0 just
 before it runs and read just after.  Then, on lines of their
 own: the card's name and power limit as nvidia-smi prints them, the kernel
-table ({"kernels": [...]}; K1's launches are small_infer's), and last
-{"ok": true, "device": {...}}.
+table ({"kernels": [...]}: K1, K2, K3, R1, R2; K1's launches are
+small_infer's, R1's and R2's infer's), and last {"ok": true, "device":
+{...}}.
 """
 
 import contextlib
@@ -182,18 +207,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PALLAS = "dbgphmm_tpu/ops/pallas_mapped.py"
-KERNELS = {  # id: (wrapper, source, the Pallas body it replaces)
-    "K1": ("mapped_scores_log", "dbgphmm_tpu_torch/csrc/mapped_scorer.cu",
+SCORER, REFINE = "mapped_scorer", "adaptive"  # modules of dbgphmm_tpu_torch.ops
+KERNELS = {  # id: (module, wrapper, source, the TPU kernel or scan it replaces)
+    "K1": (SCORER, "mapped_scores_log", "dbgphmm_tpu_torch/csrc/mapped_scorer.cu",
            f"{PALLAS}:718"),  # _make_kernel_log_packed
-    "K2": ("mapped_scores_log_single", "dbgphmm_tpu_torch/csrc/mapped_scorer.cu",
+    "K2": (SCORER, "mapped_scores_log_single",
+           "dbgphmm_tpu_torch/csrc/mapped_scorer.cu",
            f"{PALLAS}:488"),  # _make_kernel_log
-    "K3": ("mapped_scores_linear",
+    "K3": (SCORER, "mapped_scores_linear",
            "dbgphmm_tpu_torch/csrc/mapped_scorer_linear.cu",
            f"{PALLAS}:298"),  # _make_kernel
+    # the refine's two lax.scans under jax.jit (XLA, not Pallas)
+    "R1": (REFINE, "forward_mapped_tables", "dbgphmm_tpu_torch/csrc/refine.cu",
+           "dbgphmm_tpu/ops/adaptive.py:631"),  # forward_mapped_tables
+    "R2": (REFINE, "decode_from_forward", "dbgphmm_tpu_torch/csrc/refine.cu",
+           "dbgphmm_tpu/ops/adaptive.py:533"),  # _decode_mappings_from_forward
 }
 TWINS = {"K1": "mapped_scores_log_reference",
          "K2": "mapped_scores_log_single_reference",
-         "K3": "mapped_scores_linear_reference"}
+         "K3": "mapped_scores_linear_reference",
+         "R1": "forward_mapped_tables_reference",
+         "R2": "decode_from_forward_reference"}
 REL_TOL, ABS_TOL = 1e-5, 0.05  # per-read kernel vs float64 twin
 # positions of the synthetic cases: they vary the slot sets' shapes, not
 # the reads' length; their float64 twins are bound by the host's launch
@@ -236,20 +270,26 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps
 
 
-def reset_counters():
-    from dbgphmm_tpu_torch.ops import mapped_scorer as T
+def kernel_fns(kid):
+    """(wrapper, plain version) of kernel ``kid``."""
+    import importlib
 
-    for kid, (name, _src, _rep) in KERNELS.items():
-        getattr(T, name).launches = 0
-        getattr(T, TWINS[kid]).calls = 0
+    mod = importlib.import_module(f"dbgphmm_tpu_torch.ops.{KERNELS[kid][0]}")
+    return getattr(mod, KERNELS[kid][1]), getattr(mod, TWINS[kid])
+
+
+def reset_counters():
+    for kid in KERNELS:
+        wrapper, twin = kernel_fns(kid)
+        wrapper.launches = 0
+        twin.calls = 0
 
 
 def read_counters():
     """({kernel id: launches}, {kernel id: twin calls})."""
-    from dbgphmm_tpu_torch.ops import mapped_scorer as T
-
-    return ({k: getattr(T, name).launches for k, (name, _s, _r) in KERNELS.items()},
-            {k: getattr(T, TWINS[k]).calls for k in KERNELS})
+    fns = {kid: kernel_fns(kid) for kid in KERNELS}
+    return ({k: w.launches for k, (w, _t) in fns.items()},
+            {k: t.calls for k, (_w, t) in fns.items()})
 
 
 def sm_clock_hz():
@@ -270,8 +310,15 @@ def ptxas_of(output):
         if m:
             k = re.search(r"log_scorerILi(\d+)ELi(\d+)E", m.group(1))
             lin = re.search(r"linear_scorerILi(\d+)E", m.group(1))
+            r1 = re.search(r"refine_forwardI([fd])E", m.group(1))
+            r2 = re.search(r"refine_decodeI([fd])(f|d|13__nv_bfloat16)Li(\d)E",
+                           m.group(1))
+            ty = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
             entry = (f"log_scorer<RW={k.group(1)},RENORM={k.group(2)}>" if k
                      else f"linear_scorer<RW={lin.group(1)}>" if lin
+                     else f"refine_forward<{ty[r1.group(1)]}>" if r1
+                     else (f"refine_decode<{ty[r2.group(1)]},{ty[r2.group(2)]},"
+                           f"SPT={r2.group(3)}>") if r2
                      else m.group(1))
             out.append({"entry": entry})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -395,11 +442,211 @@ def phase_mapping(params, ds, first):
     assert first["params"] == params, first["params"]
     assert maps.n_reads() == len(ds.reads)
     assert np.isfinite(maps.read_logps).all()
+    # one read chunk (98 <= MAPPING_READ_CHUNK reads): R1 and R2 once each
+    n = first["launches"]
+    assert n["r1_launches"] == n["r2_launches"] == 1 and not n["twin_calls"], n
     emit("mapping", t0, reads=maps.n_reads(),
          bases=sum(len(r) for r in ds.reads),
-         width=max(n.shape[1] for n in maps.nodes), seed_s=first["seed_s"],
-         refine_s=first["refine_s"])
+         width=max(n.shape[1] for n in maps.nodes),
+         hint_width=max(a.shape[1] for a in first["hint"].nodes),
+         seed_s=first["seed_s"], refine_s=first["refine_s"], launches=n)
     return maps
+
+
+PARITY_READS, PARITY_L = 16, 2000  # refine_parity's cut (the plain loops
+# are launch-bound: their time follows the positions, not the reads)
+BF16_READS, BF16_L = 4, 1000  # R2 on the frontier forward's bfloat16 tables
+REFINE_TOL = {"float64": 1e-9, "float32": 1e-5}
+
+
+def refine_bound(kid, dm, codes, lens, nodes, n_out, clock_hz, n_sm):
+    """The least time the card could take for one launch of R1 or R2 on
+    these inputs (ms) and what sets it.  Bytes: each input read once (the
+    model's arrays the kernel takes, codes, lens, the hint or the stored
+    tables) and each output written once (R1: nodes / m / i / d [L, B, A],
+    off, e; R2: tops_logp and tops_nodes [L, B, k], k = ``n_out``).
+    Operations: the exp / log (log1p) of the recursion per live slot-step
+    (a slot holding a node, at a step with a read position), counted from
+    this run's data with P the node's finite parent (R1) or child (R2)
+    columns, S = P + 1 the cost of a log-sum-exp over them (0 where P = 0)
+    and G = n_max_gaps: R1 14 + 2G + (2 + G) S (pre-M and pre-I, M, pre-D,
+    the closure's first value and G rounds), R2 10 + 4P + 2G + (3 + G) S
+    (D, G rounds, M and I, S and its log);
+    at 16 exp2 / log2 per SM per clock (their float32 rate; an accurate
+    expf costs more)."""
+    import torch
+
+    L, B, A = nodes.shape
+    steps = torch.arange(L, device=lens.device)[:, None]
+    if kid == "R1":
+        live_step = steps < lens[None, :]  # [L, B]
+        logt = dm.parent_logt
+    else:  # R2's step t holds the stored cells at read position len - 2 - t
+        live_step = steps < (lens[None, :] - 1)
+        logt = dm.child_logt
+    live = (nodes >= 0) & live_step[:, :, None]
+    P = torch.isfinite(logt).sum(1)[nodes.clamp(min=0).long()]  # [L, B, A]
+    G = dm.n_max_gaps
+    S = (P + 1) * (P > 0)
+    per = (14 + 2 * G + (2 + G) * S if kid == "R1"
+           else 10 + 4 * P + 2 * G + (3 + G) * S)
+    trans = int((per * live).sum())
+    el = torch.finfo(dm.dtype).bits // 8
+    model = sum(t.numel() * t.element_size() for t in (
+        (dm.emission, dm.init_logp, dm.parent_idx, dm.parent_logt) if kid == "R1"
+        else (dm.emission, dm.child_idx, dm.child_logt)))
+    nbytes = model + codes.numel() * 4 + lens.numel() * 4
+    if kid == "R1":
+        nbytes += L * B * A * 4 + L * B * A * (4 + 3 * el) + L * B * el + B * el
+    else:
+        nbytes += L * B * A * (4 + 3 * el) + L * B * el + B * el
+        nbytes += L * B * n_out * (el + 4)
+    times = {"operations": trans / (MUFU_PER_SM_CLK * n_sm * clock_hz),
+             "bytes": nbytes / PEAK_HBM}
+    by = max(times, key=times.get)
+    return dict(bound_ms=times[by] * 1e3, bound_by=by, live_slot_steps=int(live.sum()),
+                transcendentals=trans, bytes=nbytes,
+                mufu_ms=times["operations"] * 1e3, bytes_ms=times["bytes"] * 1e3)
+
+
+def rel_err(got, ref, scale=None):
+    """max |got - ref| / max(|ref|, |scale|, 1) over the finite entries,
+    after asserting the same -inf / +inf pattern; also max |got - ref|.  A
+    decode's log posterior is (F + B + offsets) - log P(read): its rounding
+    is that of terms as large as the read's log-likelihood, so ``scale`` is
+    |e| of its read there."""
+    import numpy as np
+
+    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    assert np.array_equal(np.isneginf(got), np.isneginf(ref)), "-inf pattern"
+    assert np.array_equal(np.isposinf(got), np.isposinf(ref)), "+inf pattern"
+    fin = np.isfinite(ref)
+    assert np.isfinite(got[fin]).all(), "NaN"
+    den = np.maximum(np.abs(ref), 1.0)
+    if scale is not None:
+        sc = np.abs(scale.double().cpu().numpy())
+        sc = sc.reshape(sc.shape + (1,) * (ref.ndim - sc.ndim))
+        den = np.maximum(den, np.where(np.isfinite(sc), sc, 1.0))
+    d = np.abs(got[fin] - ref[fin])
+    return (float((d / den[fin]).max(initial=0.0)), float(d.max(initial=0.0)))
+
+
+def top1_agree(got, ref):
+    """Share of read positions whose top-1 node is the same, over the
+    positions where either has one."""
+    g, r = got[..., 0], ref[..., 0]
+    has = (g >= 0) | (r >= 0)
+    return float((g == r)[has].double().mean()) if bool(has.any()) else 1.0
+
+
+def phase_refine_parity(device, params, ds, dbg, first):
+    """R1 and R2 against their plain versions on the card, on the seeded
+    hint the ``infer`` phase's first mapping was refined from: PARITY_READS
+    reads cut to their first PARITY_L positions, in float64 (R1's e and
+    R2's map_logp to 1e-9 relative, finite m / i / d to 1e-9, the -inf
+    patterns and the stored nodes equal) and in float32 (e and map_logp to
+    1e-5); R2 on R1's kernel tables against its plain version on the same
+    tables; >= 99.9% equal top-1 nodes.  R2 again on the frontier
+    forward's bfloat16 tables (BF16_READS reads of BF16_L positions, the
+    frontier decode's settings).  Then R1 and R2 (float32) timed with CUDA
+    events on all reads at full length, their bound and share of it, and
+    the plain versions' ms at the cut and at the full shape."""
+    import numpy as np
+    import torch
+
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+    from dbgphmm_tpu_torch.ops import adaptive as AD
+    from dbgphmm_tpu_torch.ops.forward import pad_reads, to_device
+
+    t0 = time.perf_counter()
+    model = dbg.to_phmm(params, mode="non_zero")
+    codes, lens = pad_reads(list(ds.reads))
+    hint = TP._pad_hint_nodes(first["hint"], codes.shape[1],
+                              2 * TP.MAPPING_WIDTH_CAP)
+    n_active, ratio = TP.MAPPING_WIDTH_CAP, params.active_node_max_ratio
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                                    device=device)
+    cut = (i32(codes[:PARITY_READS, :PARITY_L]),
+           i32(np.minimum(lens[:PARITY_READS], PARITY_L)),
+           i32(hint[:PARITY_READS, :PARITY_L]))
+    full = (i32(codes), i32(lens), i32(hint))
+    dms = {name: to_device(model, device, dt) for name, dt in
+           (("float64", torch.float64), ("float32", torch.float32))}
+    out, err32 = {}, {}
+    for name, dm in dms.items():
+        tol = REFINE_TOL[name]
+        c, l, h = cut
+        f = AD.forward_mapped_tables(dm, c, l, h)
+        f_ref = AD.forward_mapped_tables_reference(dm, c, l, h)
+        assert torch.equal(f.nodes, f_ref.nodes), f"R1 {name}: stored nodes"
+        r1 = {k: rel_err(getattr(f, k), getattr(f_ref, k))
+              for k in ("e", "m", "i", "d", "off")}
+        assert max(v[0] for v in r1.values()) <= tol, (name, r1)
+        assert bool(torch.isfinite(f.e).all()), f.e
+        got = AD.decode_from_forward(dm, c, l, f, n_active, ratio)
+        ref = AD.decode_from_forward_reference(dm, c, l, f, n_active, ratio)
+        r2 = rel_err(got[2], ref[2], ref[0])
+        agree = top1_agree(got[1], ref[1])
+        assert r2[0] <= tol and agree >= 0.999, (name, r2, agree)
+        out[name] = dict(r1_rel={k: v[0] for k, v in r1.items()},
+                         r2_map_logp_rel=r2[0], r2_top1_agree=agree,
+                         r2_nodes_equal=bool(torch.equal(got[1], ref[1])))
+        if name == "float32":
+            err32 = {"R1": r1["e"][1], "R2": r2[1]}
+            cut_ms = dict(
+                r1_ms=cuda_ms(lambda: AD.forward_mapped_tables(dm, c, l, h), 3),
+                r2_ms=cuda_ms(lambda: AD.decode_tops(
+                    dm, c, l, f, min(n_active, h.shape[2]), ratio), 3),
+                r1_plain_ms=cuda_ms(lambda: AD.forward_mapped_tables_reference(
+                    dm, c, l, h), 1, warmup=False),
+                r2_plain_ms=cuda_ms(lambda: AD.decode_from_forward_reference(
+                    dm, c, l, f, n_active, ratio), 1, warmup=False))
+
+    # R2 on the frontier forward's bfloat16 tables
+    dm = dms["float32"]
+    c = i32(codes[:BF16_READS, :BF16_L])
+    l = i32(np.minimum(lens[:BF16_READS], BF16_L))
+    fb = AD.forward_sparse_adaptive(
+        dm, c, l, n_top=TP.ADAPTIVE_FRONTIER_TOP, n_warmup=16, max_ratio=ratio,
+        stored_k=max(n_active, TP.ADAPTIVE_FRONTIER_TOP), store_bf16=True)
+    assert fb.m.dtype == torch.bfloat16
+    got = AD.decode_from_forward(dm, c, l, fb, n_active, ratio)
+    ref = AD.decode_from_forward_reference(dm, c, l, fb, n_active, ratio)
+    rb = rel_err(got[2], ref[2], ref[0])
+    agree = top1_agree(got[1], ref[1])
+    assert rb[0] <= REFINE_TOL["float32"] and agree >= 0.999, (rb, agree)
+    err32["R2"] = max(err32["R2"], rb[1])
+    out["bfloat16_tables"] = dict(reads=BF16_READS, positions=BF16_L,
+                                  cells=int(fb.nodes.shape[2]),
+                                  r2_map_logp_rel=rb[0], r2_top1_agree=agree)
+
+    # the main shape: all reads at full length, float32
+    c, l, h = full
+    f = AD.forward_mapped_tables(dm, c, l, h)
+    assert bool(torch.isfinite(f.e).all())
+    k = min(n_active, h.shape[2])
+    ms = {"R1": cuda_ms(lambda: AD.forward_mapped_tables(dm, c, l, h), 3),
+          "R2": cuda_ms(lambda: AD.decode_tops(dm, c, l, f, k, ratio), 3)}
+    plain = {"R1": cuda_ms(lambda: AD.forward_mapped_tables_reference(
+                 dm, c, l, h), 1, warmup=False),
+             "R2": cuda_ms(lambda: AD.decode_from_forward_reference(
+                 dm, c, l, f, n_active, ratio), 1, warmup=False)}
+    clock, n_sm = sm_clock_hz(), torch.cuda.get_device_properties(
+        device).multi_processor_count
+    res, main = {}, {}
+    for kid in ("R1", "R2"):
+        bnd = refine_bound(kid, dm, c, l, h.transpose(0, 1) if kid == "R1"
+                           else f.nodes, k, clock, n_sm)
+        main[kid] = dict(ms=ms[kid], plain_ms=plain[kid], **bnd,
+                         share_of_bound=bnd["bound_ms"] / ms[kid])
+        res[kid] = dict(max_abs_err=err32[kid], ms=ms[kid], plain_ms=plain[kid],
+                        bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+    emit("refine_parity", t0, cut=dict(reads=PARITY_READS, positions=PARITY_L,
+                                       width=int(cut[2].shape[2]), **cut_ms),
+         parity=out, main_shape=dict(reads=int(c.shape[0]), L=int(c.shape[1]),
+                                     width=int(h.shape[2]), k=k, **main),
+         max_abs_err_f32=err32)
+    return res
 
 
 def phase_k1_parity(device, params, ds, dbg, maps98):
@@ -617,8 +864,7 @@ def phase_parity(kid, device, params, dbg, ctx, genome_size, rescue_args=None):
     from dbgphmm_tpu_torch.ops import mapped_scorer as T
 
     t0 = time.perf_counter()
-    kernel = getattr(T, KERNELS[kid][0])
-    twin = getattr(T, TWINS[kid])
+    kernel, twin = kernel_fns(kid)
     linear = kid == "K3"
     inv_of = T.lin_inv_total if linear else T.log_inv_total
     s, dev_s, B, lt, kw = (ctx[k] for k in ("s", "dev_s", "B", "lt", "kw"))
@@ -906,11 +1152,13 @@ def phase_inspect(device, json_path, dbg_path):
 def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
     """The port's CLI ``sim-infer <json> -d <dbg> -o <out_dir>/out -K k_max
     -I 1`` in this process: the K1 kernel ran, no twin did, no likelihood
-    is NaN, the per-k files of ``ks`` exist; K1's launches in each stage.
-    The files and the CLI's log (``out.log``) stay in ``out_dir`` for the
-    tools phase.  Returns K1's launches and the first stage's mapping of
-    the draft (a dict: the Mappings, its params, its seed and refine
-    seconds)."""
+    is NaN, the per-k files of ``ks`` exist; K1's launches in each stage;
+    R2 launched for every stage's mapping and R1 for those refined from a
+    hint, no plain version ran.  The files and the CLI's log (``out.log``)
+    stay in ``out_dir`` for the tools phase.  Returns ({kernel id:
+    launches}, the first stage's mapping of the draft: a dict of the
+    Mappings, its params, the hint it was refined from, its R1 / R2
+    launches, its seed and refine seconds)."""
     import numpy as np
 
     from dbgphmm_tpu_torch import cli
@@ -920,7 +1168,9 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
 
     t0 = time.perf_counter()
     # K1 launches of each stage's climb: the counter read around each
-    # sample_posterior call (one per k-stage and one for the final pass)
+    # sample_posterior call (one per k-stage and one for the final pass),
+    # and R1 / R2 launches of each stage's mapping (read around the outer
+    # generate_mappings call)
     per_stage = []
     real_sample = TP.sample_posterior
 
@@ -931,22 +1181,35 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
                               samples=len(post.samples)))
         return post
 
-    # the first stage's mapping of the draft, kept for the phases after
-    # (generate_mappings calls itself per read chunk: only the outer call)
+    # the first stage's mapping of the draft and the hint it was refined
+    # from, kept for the phases after (generate_mappings calls itself for
+    # the seeded hint and per read chunk: the outer call and the first
+    # call with a hint)
     real_generate = TP.generate_mappings
-    first, depth = {}, [0]
+    first, depth, per_mapping = {}, [0], []
 
     def capturing(dbg, params, reads, device, **kw):
+        if depth[0] == 0:
+            n0 = read_counters()
+        elif kw.get("hint") is not None and "hint" not in first:
+            first["hint"] = kw["hint"]
         depth[0] += 1
         try:
             maps = real_generate(dbg, params, reads, device, **kw)
         finally:
             depth[0] -= 1
-        if depth[0] == 0 and not first:
-            times = kw.get("times")
-            first.update(maps=maps, params=params,
-                         seed_s=times.seed_s if times else None,
-                         refine_s=times.refine_s if times else None)
+        if depth[0] == 0:
+            n1 = read_counters()
+            per_mapping.append(dict(
+                k=dbg.k, reads=len(reads),
+                **{f"{kid.lower()}_launches": n1[0][kid] - n0[0][kid]
+                   for kid in ("R1", "R2")},
+                twin_calls=sum(n1[1].values()) - sum(n0[1].values())))
+            if "maps" not in first:
+                times = kw.get("times")
+                first.update(maps=maps, params=params, launches=per_mapping[0],
+                             seed_s=times.seed_s if times else None,
+                             refine_s=times.refine_s if times else None)
         return maps
 
     os.makedirs(out_dir)
@@ -970,6 +1233,11 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
         Path(prefix + ".log").write_text(buf.getvalue())
     launches, twins = read_counters()
     assert launches["K1"] > 0, f"{phase}: the K1 kernel never ran"
+    # every stage maps its reads through the refine (the seeded hint, or
+    # the last stage's mapping) or, on a small graph's first stage, the
+    # sparse-adaptive decode: R2 in each, R1 wherever there was a hint
+    assert launches["R1"] > 0 and launches["R2"] >= launches["R1"], launches
+    assert all(m["r2_launches"] > 0 for m in per_mapping), per_mapping
     assert not any(twins.values()), f"{phase}: a twin ran on CUDA: {twins}"
     lls = np.asarray([s.score.likelihood for s in post.samples])
     assert not np.isnan(lls).any(), f"{phase}: NaN likelihood"
@@ -983,10 +1251,12 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
     assert sum(st["k1_launches"] for st in per_stage) == launches["K1"]
     emit(phase, t0, argv=argv[:1] + argv[4:], launches=launches["K1"],
          k1_launches_per_stage=per_stage,
+         r1_launches=launches["R1"], r2_launches=launches["R2"],
+         refine_launches_per_mapping=per_mapping,
          twin_calls=twins["K1"], final_k=dbg.k, n_samples=len(lls),
          n_finite=int(np.isfinite(lls).sum()), log=tail,
          stages=[st.as_dict() for st in stages])
-    return launches["K1"], first
+    return launches, first
 
 
 # -- the from-scratch decodes --------------------------------------------------
@@ -1163,8 +1433,10 @@ def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
     try:
         for f, fn in real.items():
             setattr(TP, f, recording(fn))
+        reset_counters()
         with contextlib.redirect_stdout(buf):
             maps = TP.generate_mappings(dbg, params, reads, device, times=times)
+        launches, twins = read_counters()
     finally:
         for f, fn in real.items():
             setattr(TP, f, fn)
@@ -1181,6 +1453,11 @@ def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
                    for c in calls), calls
     if name == "frontier":
         assert all(c["n_warmup"] == 16 and c["store_bf16"] for c in calls), calls
+    # the sparse-adaptive decodes run R2 once per call, the dense one
+    # neither kernel; no plain version ran
+    want_r2 = 0 if name == "dense" else len(calls)
+    assert launches["R2"] == want_r2 and launches["R1"] == 0, (name, launches)
+    assert not any(twins.values()), (name, twins)
     assert np.isfinite(maps.read_logps).all(), maps.read_logps
     chunk = [ln for ln in buf.getvalue().splitlines()
              if ln.startswith("[mappings] dense decode")]
@@ -1189,7 +1466,7 @@ def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
     ref = cpu_reference_of(ref_proc, tmp, name)
     rel, agree = hold_to_reference(maps, ref, name)
     emit(f"{name}_decode", t0, reads=len(reads), bases=bases, full_edges=n,
-         calls=calls, decode_s=times.decode_s,
+         calls=calls, r2_launches=launches["R2"], decode_s=times.decode_s,
          decode_s_per_read_base=times.decode_s / bases,
          width=max(a.shape[1] for a in maps.nodes), dense_chunk=chunk,
          ref_reads=len(ref["read_logps"]), max_rel_logp_diff=rel,
@@ -1300,7 +1577,8 @@ def phase_speed_test(device):
     """``bench.main`` in this process: the two K1 parts at the benchmark's
     full shapes, the fwd-bwd part at B = 384 reads of SPEED_FB_L bases.
     Each part's launch counters are set to 0 just before it and read just
-    after: K1 launched in both scorer parts, no twin ran anywhere."""
+    after: K1 launched in both scorer parts, R2 in the fwd-bwd decode, no
+    twin ran anywhere."""
     import numpy as np
 
     from dbgphmm_tpu_torch import bench
@@ -1329,12 +1607,14 @@ def phase_speed_test(device):
             setattr(bench, name, fn)
     for name in ("run_synthetic", "run_real_graph"):
         assert counts[name][0]["K1"] > 0, (name, counts[name])
+    assert counts["run_fwd_bwd"][0]["R2"] > 0, counts["run_fwd_bwd"]
     assert not any(v for _l, twins in counts.values() for v in twins.values()), counts
     assert [ln["metric"] for ln in lines][-1] == \
         "torch_real_graph_k1_scorings_per_sec_k40", lines
     assert all(np.isfinite(ln["value"]) and ln["value"] > 0 for ln in lines), lines
     emit("speed_test", t0, part_s=secs,
          k1_launches={n: c[0]["K1"] for n, c in counts.items()},
+         r2_launches=counts["run_fwd_bwd"][0]["R2"],
          values={ln["metric"]: ln["value"] for ln in lines})
 
 
@@ -1512,7 +1792,10 @@ def phase_mesh_path(device, params, ds, dbg, maps98, post_packed, json_path,
     """The sharded paths of the decodes and the climb on the one card:
     generate_mappings(mesh=1x2) on u500(3)'s first MESH_DECODE_READS reads
     against the same reads of dense_decode's unsharded decode (<= 1e-6
-    relative, >= 99.9% equal top-1 nodes; bit equality expected);
+    relative, >= 99.9% equal top-1 nodes; bit equality expected); the
+    seeded refine (R1, R2) with mesh=1x2 on data/bench's first
+    MESH_DECODE_READS reads against the infer phase's unsharded mapping of
+    them (the same gates; R1 and R2 launched shards x read chunks times);
     sample_posterior(mesh=2x2, max_iter=1) on data/bench with the shared
     mapping against scorer_spaces' packed posterior (the same inputs): the
     same samples and max_copy_nums, likelihoods within 1e-5 relative, K1
@@ -1552,6 +1835,33 @@ def phase_mesh_path(device, params, ds, dbg, maps98, post_packed, json_path,
         bit_equal=bool(np.array_equal(maps.read_logps, ref.read_logps)
                        and same_nodes),
         log=[ln for ln in buf.getvalue().splitlines() if "[mappings]" in ln])
+
+    # the seeded refine on data/bench's first reads over a 1x2 mesh: R1 and
+    # R2 once per shard block and read chunk, against the same reads of
+    # the infer phase's unsharded mapping (the decode's gates)
+    reads = list(ds.reads)[:MESH_DECODE_READS]
+    mesh = one_card_mesh(device, 2, 1)
+    times = TP.StageTimes(k=dbg.k)
+    buf = io.StringIO()
+    reset_counters()
+    with contextlib.redirect_stdout(buf):
+        maps = TP.generate_mappings(dbg, params, reads, device, times=times,
+                                    mesh=mesh)
+    launches, twins = read_counters()
+    n_chunks = -(-len(reads) // TP.MAPPING_READ_CHUNK)
+    assert launches["R1"] == launches["R2"] == mesh.size * n_chunks, launches
+    assert not any(twins.values()), twins
+    ref = first_reads(maps98, len(reads))
+    rel = np.abs(maps.read_logps - ref.read_logps) / np.abs(ref.read_logps)
+    top1 = np.concatenate([a[:, 0] for a in maps.nodes])
+    top1_ref = np.concatenate([a[:, 0] for a in ref.nodes])
+    agree = float((top1 == top1_ref).mean())
+    assert np.isfinite(maps.read_logps).all(), maps.read_logps
+    assert rel.max() <= 1e-6 and agree >= 0.999, (rel.max(), agree)
+    out["refine"] = dict(mesh=mesh.shape, reads=len(reads),
+                         r1_launches=launches["R1"], r2_launches=launches["R2"],
+                         seed_s=times.seed_s, refine_s=times.refine_s,
+                         max_rel_logp_diff=float(rel.max()), top1_agree=agree)
 
     mesh = one_card_mesh(device, 4, 2)
     times = TP.StageTimes(k=dbg.k)
@@ -1707,9 +2017,16 @@ def main():
     _build.build_all()
     log = _build.BUILD_LOG
     ptxas = {stem: ptxas_of(log[stem]["output"])
-             for stem in ("libmapped_scorer", "libmapped_scorer_linear")}
+             for stem in ("libmapped_scorer", "libmapped_scorer_linear",
+                          "librefine")}
+    # R1: float32, float64; R2: (float32, float64) x (own type, bfloat16)
+    # x one or two cells per thread
+    assert len(ptxas["librefine"]) == 10, ptxas["librefine"]
+    assert all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+               for e in ptxas["librefine"]), ptxas["librefine"]
     emit("build", t1, k1_k2_nvcc_s=log["libmapped_scorer"]["seconds"],
          k3_nvcc_s=log["libmapped_scorer_linear"]["seconds"],
+         r1_r2_nvcc_s=log["librefine"]["seconds"],
          host_gxx_s={n: log[f"lib{n}"]["seconds"] for n in _build.HOST_LIBS},
          ptxas=ptxas)
 
@@ -1724,11 +2041,12 @@ def main():
         try:
             u = {name: (Path(tmp) / f"u{n}.json", Path(tmp) / f"u{n}.dbg")
                  for name, n in U500.items()}
-            _, first = run_sim_infer("infer", bench_json, bench_dbg, 40, (40,),
-                                     Path(tmp) / "infer")
+            infer_launches, first = run_sim_infer(
+                "infer", bench_json, bench_dbg, 40, (40,), Path(tmp) / "infer")
             maps98 = phase_mapping(params, ds, first)
+            res = phase_refine_parity(device, params, ds, dbg, first)
             del first
-            res = {}
+            launches = {kid: infer_launches[kid] for kid in ("R1", "R2")}
             res["K1"], ctx = phase_k1_parity(device, params, ds, dbg, maps98)
             ctx["blocked"] = blocked_candidate(device, ctx)
             res["K2"] = phase_parity("K2", device, params, dbg, ctx,
@@ -1741,8 +2059,8 @@ def main():
             phase_refine(maps98, ref_proc, tmp)
             spaces, post_packed = phase_scorer_spaces(device, params, ds, dbg,
                                                       maps98)
-            launches = {"K2": phase_inspect(device, *u["dense"]),
-                        "K3": spaces["linear"]["launches"]["K3"]}
+            launches.update(K2=phase_inspect(device, *u["dense"]),
+                            K3=spaces["linear"]["launches"]["K3"])
             dense_maps = phase_decode("dense", device, params, *u["dense"],
                                       ref_proc, tmp)
             phase_batch(device, params, *u["dense"],
@@ -1757,8 +2075,9 @@ def main():
                          ref_proc, tmp, n_reads=FRONTIER_READS,
                          read_len=FRONTIER_LEN,
                          env={"DBGPHMM_SEED_MAPPING": "0"})
-            launches["K1"], _ = run_sim_infer("small_infer", *u["adaptive"], 41,
+            small_launches, _ = run_sim_infer("small_infer", *u["adaptive"], 41,
                                               (40, 41), Path(tmp) / "small_infer")
+            launches["K1"] = small_launches["K1"]
             phase_tools(device, bench_json, Path(tmp))
             phase_speed_test(device)
         finally:
@@ -1774,9 +2093,9 @@ def main():
         "launches": launches[kid], "max_abs_err": res[kid]["max_abs_err"],
         "ms": res[kid]["ms"], "plain_ms": res[kid]["plain_ms"],
         "bound_ms": res[kid]["bound_ms"], "bound_by": res[kid]["bound_by"],
-        # no single PyTorch call computes a profile-HMM forward
+        # no single PyTorch call computes a profile-HMM forward or backward
         "library_ms": None,
-    } for kid, (name, src, rep) in KERNELS.items()]}))
+    } for kid, (_mod, name, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

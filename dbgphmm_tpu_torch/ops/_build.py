@@ -12,6 +12,9 @@ ctypes; nothing is built when a module is imported.
   ``csrc/mapped_scorer_linear.cu``, built the same way.  Both CUDA sources
   include ``csrc/mapped_common.cuh``, and every scorer has the same C
   entry and an occupancy entry beside it (``_scorer_entries``).
+* ``librefine_<hash>.so`` — the refine's two scans R1 and R2,
+  ``csrc/refine.cu`` (``ops/adaptive.py``), built the same way; it has its
+  own C entries (``dbg_refine_forward``, ``dbg_refine_decode``).
 * ``lib<name>_<hash>.so`` — the host kernels in ``csrc/host/``, compiled
   with ``g++``: ``positions.cpp`` (slot positions, ``ops/sparse.py``),
   ``flow.cpp`` (the min-cost flow solver, ``flow/native.py``),
@@ -41,6 +44,7 @@ PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 SCORER_SRC = PKG / "csrc" / "mapped_scorer.cu"
 LINEAR_SRC = PKG / "csrc" / "mapped_scorer_linear.cu"
+REFINE_SRC = PKG / "csrc" / "refine.cu"
 COMMON_HDR = PKG / "csrc" / "mapped_common.cuh"
 HOST_DIR = PKG / "csrc" / "host"
 HOST_LIBS = ("positions", "flow", "seedchain", "kshortest")
@@ -103,12 +107,13 @@ def nvcc_path() -> str:
     return nvcc
 
 
-def _cuda_lib(src: Path, stem: str, entries) -> ctypes.CDLL:
-    """Build ``src`` with nvcc and bind ``entries``: {name: (restype,
-    argtypes)}, plus ``dbg_cuda_error_string``."""
+def _cuda_lib(src: Path, stem: str, entries, deps=(COMMON_HDR,)) -> ctypes.CDLL:
+    """Build ``src`` (which includes ``deps``) with nvcc and bind
+    ``entries``: {name: (restype, argtypes)}, plus
+    ``dbg_cuda_error_string``."""
     nvcc = nvcc_path()
     so = _compile(lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(src)],
-                  [src, COMMON_HDR], stem, NVCC_FLAGS)
+                  [src, *deps], stem, NVCC_FLAGS)
     lib = ctypes.CDLL(str(so))
     entries = dict(entries, dbg_cuda_error_string=(ctypes.c_char_p,
                                                    [ctypes.c_int]))
@@ -147,6 +152,18 @@ def mapped_scorer_linear_lib() -> ctypes.CDLL:
     return _LIBS["linear"]
 
 
+def refine_lib() -> ctypes.CDLL:
+    """The compiled refine scans R1 and R2 (built on first call)."""
+    if "refine" not in _LIBS:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        _LIBS["refine"] = _cuda_lib(REFINE_SRC, "librefine", {
+            "dbg_refine_forward": (i32, [i32] + [vp] * 14 + [i32] * 5 + [vp]),
+            "dbg_refine_decode": (i32, [i32] * 2 + [vp] * 14 + [i32] * 7
+                                  + [ctypes.c_double, vp]),
+        }, deps=())
+    return _LIBS["refine"]
+
+
 def host_so(name: str) -> Path:
     """``csrc/host/<name>.cpp`` compiled with g++ (on first call)."""
     src = HOST_DIR / f"{name}.cpp"
@@ -174,7 +191,7 @@ def positions_lib() -> ctypes.CDLL:
 
 def build_all() -> None:
     """Build every native library at once, one compiler process each."""
-    jobs = [mapped_scorer_lib, mapped_scorer_linear_lib]
+    jobs = [mapped_scorer_lib, mapped_scorer_linear_lib, refine_lib]
     jobs += [lambda n=name: host_so(n) for name in HOST_LIBS]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         for f in [pool.submit(fn) for fn in jobs]:

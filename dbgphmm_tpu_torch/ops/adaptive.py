@@ -20,6 +20,20 @@ tables are ``[L, B, K]``.
 * ``mappings_refine`` (ref: hint.rs:206-216 run_with_mapping): the same
   backward-by-forward decode over a hint's per-position active sets.
 
+The two scans of the refine are CUDA kernels (``csrc/refine.cu``), each
+with its plain PyTorch version beside it:
+
+    R1 forward_mapped_tables  the scan at dbgphmm_tpu/ops/adaptive.py:631
+       (forward_mapped_tables_reference)
+    R2 decode_from_forward    the scan at dbgphmm_tpu/ops/adaptive.py:533
+       (decode_from_forward_reference)
+
+For a model on the CPU a wrapper runs its plain version; on a CUDA device
+it checks its inputs and launches its kernel on the current stream, or
+raises (``.launches`` counts the launches, ``.calls`` the plain runs).
+``mappings_refine`` runs R1 then R2; ``mappings_sparse_adaptive`` runs the
+plain sparse-adaptive forward then R2.
+
 The JAX package reads the frontier's children through a one-hot matrix
 product (``_onehot_slot_dot``, the TPU's way around slot gathers, with a
 finite stand-in for -inf); here they are read with ``torch.gather`` and a
@@ -28,10 +42,12 @@ child is kept where its log transition probability is finite.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
+from . import _build
 from .forward import (NEG, DeviceModel, _f_init, _f_step, _kahan, _ladd,
                       _ladd3, _lse_deg, _max_shift, _put_last, _ratio_mask,
                       _reverse_codes, _s_log, _scatter_positions, _top_k)
@@ -245,12 +261,14 @@ def forward_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
     return AdaptiveTables(nodes=ns, m=ms, i=is_, d=ds, off=offs, e=st.e + st.off)
 
 
-def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
-                          lens: torch.Tensor, map_nodes: torch.Tensor
-                          ) -> AdaptiveTables:
-    """Mapping-constrained forward storing per-step active tables
-    (ref: forward.rs:51-77 forward_with_mapping).  codes [B, L] int,
-    lens [B] int, map_nodes [B, L, A] int (-1 pad), all on dm's device."""
+def forward_mapped_tables_reference(dm: DeviceModel, codes: torch.Tensor,
+                                    lens: torch.Tensor, map_nodes: torch.Tensor
+                                    ) -> AdaptiveTables:
+    """Plain PyTorch version of R1: the mapping-constrained forward storing
+    per-step active tables (ref: forward.rs:51-77 forward_with_mapping).
+    codes [B, L] int, lens [B] int, map_nodes [B, L, A] int (-1 pad), all
+    on dm's device."""
+    forward_mapped_tables_reference.calls += 1
     B, L = codes.shape
     A = map_nodes.shape[2]
     dt, dev = dm.dtype, dm.device
@@ -268,6 +286,9 @@ def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
                            codes_t[p], p < lens)
         ns[p], ms[p], is_[p], ds[p], offs[p] = st.nodes, st.m, st.i, st.d, st.off
     return AdaptiveTables(nodes=ns, m=ms, i=is_, d=ds, off=offs, e=st.e + st.off)
+
+
+forward_mapped_tables_reference.calls = 0
 
 
 # -- backward by forward and the decode ---------------------------------------
@@ -340,15 +361,17 @@ def _b_step_sparse(dm: DeviceModel, st: BCarry, cur_nodes: torch.Tensor,
     )
 
 
-def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
+def decode_from_forward_reference(dm: DeviceModel, codes: torch.Tensor,
                                   lens: torch.Tensor, f: AdaptiveTables,
                                   n_active: int, max_ratio):
-    """Backward-by-forward + per-position top-k decode over the stored
-    forward tables (ref: backward.rs:101-142, table.rs:500-517); the stored
-    tables may be bfloat16, the backward carry is ``dm.dtype`` (a sum of
-    the two is in the wider type).
+    """Plain PyTorch version of R2 with the decode's ends: the
+    backward-by-forward + per-position top-k decode over the stored forward
+    tables (ref: backward.rs:101-142, table.rs:500-517); the stored tables
+    may be bfloat16, the backward carry is ``dm.dtype`` (a sum of the two
+    is in the wider type).
 
     Returns (logp [B], map_nodes [B, L, k], map_logp [B, L, k])."""
+    decode_from_forward_reference.calls += 1
     B, L = codes.shape
     dt, dev = dm.dtype, dm.device
     logp = f.e
@@ -365,8 +388,6 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
     k = min(n_active, f.nodes.shape[2])
     tops_logp = torch.empty((L, B, k), dtype=dt, device=dev)
     tops_nodes = torch.empty((L, B, k), dtype=torch.int32, device=dev)
-    i_merges = torch.empty((L, B), dtype=torch.long, device=dev)
-    valids = torch.empty((L, B), dtype=torch.bool, device=dev)
     pk = _pack_model(dm)
     xs_rev_t = _reverse_codes(codes, lens).t()
     for t in range(L):
@@ -386,11 +407,32 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
         top_nodes = torch.gather(cur_nodes, 1, top_slot)
         top_nodes = torch.where(torch.isfinite(top_logp), top_nodes, -1)
         tops_logp[t], tops_nodes[t] = _ratio_mask(top_logp, top_nodes, max_ratio)
-        i_merges[t], valids[t] = i_merge, valid
+    return _decode_finish(dm, lens, f, tops_logp, tops_nodes, max_ratio)
 
+
+decode_from_forward_reference.calls = 0
+
+
+def _decode_finish(dm: DeviceModel, lens: torch.Tensor, f: AdaptiveTables,
+                   tops_logp: torch.Tensor, tops_nodes: torch.Tensor,
+                   max_ratio):
+    """The decode's ends, after the scan's per-step top k (scan order,
+    [L, B, k]): the rows into read-position order, and read position
+    len - 1 from the forward's last cells.  Returns (logp [B], map_nodes
+    [B, L, k], map_logp [B, L, k])."""
+    L, B, k = tops_logp.shape
+    dev = dm.device
+    logp = f.e
+    ar = torch.arange(B, device=dev)
+    lens_l = lens.long()
+    steps = torch.arange(L, device=dev)[:, None]
+    i_merges = lens_l[None, :] - 1 - steps  # [L, B], as the scan steps them
+    valids = steps < lens[None, :]
     map_logp, map_nodes = _scatter_positions(tops_logp, tops_nodes, i_merges,
                                              valids, L)
     # read position len-1: S[len] = F[len] * B_init(p_end)
+    last = (lens_l - 1).clamp(0, L - 1)
+    final_nodes = f.nodes[last, ar]
     fm_l, fi_l, fd_l = f.m[last, ar], f.i[last, ar], f.d[last, ar]
     scale_l = (f.off[last, ar] + dm.lt.end - logp)[:, None]
     s_last = (torch.exp(fm_l + scale_l) + torch.exp(fi_l + scale_l)
@@ -405,13 +447,183 @@ def _decode_mappings_from_forward(dm: DeviceModel, codes: torch.Tensor,
     return logp, map_nodes, map_logp
 
 
+# -- the kernels R1 and R2 ----------------------------------------------------
+
+REFINE_MAX_WIDTH = 256  # R1: hint slots, one per thread of a block
+DECODE_MAX_CELLS = 512  # R2: stored cells, two per thread above 256
+REFINE_MAX_DEGREE = 5  # parent / child columns (the padded model's degree)
+REFINE_MAX_GAPS = 32  # deletion-closure rounds (n_max_gaps)
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
+def _check(where: str, dm: DeviceModel, tensors: dict, width: int,
+           max_width: int) -> None:
+    """Refuse what the kernel does not take, before anything is built or
+    launched: ``tensors`` maps a name to (tensor, allowed dtypes, shape);
+    the model's arrays are checked too.  Then the device: every tensor on
+    dm's device, which must be a CUDA device."""
+    dt = dm.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"{where}: the model is {dt}, not float32 or float64")
+    n, D = dm.parent_idx.shape
+    model = dict(emission=(dm.emission, (torch.int32,), (n,)),
+                 init_logp=(dm.init_logp, (dt,), (n,)),
+                 parent_idx=(dm.parent_idx, (torch.int32,), (n, D)),
+                 parent_logt=(dm.parent_logt, (dt,), (n, D)),
+                 child_idx=(dm.child_idx, (torch.int32,), (n, D)),
+                 child_logt=(dm.child_logt, (dt,), (n, D)))
+    named = {**model, **tensors}
+    for name, (t, dtypes, shape) in named.items():
+        if t.dtype not in dtypes:
+            raise ValueError(f"{where}: {name} is {t.dtype}, not "
+                             f"{' or '.join(str(x) for x in dtypes)}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{where}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous")
+    if not 1 <= width <= max_width:
+        raise ValueError(f"{where}: width {width} outside 1..{max_width}")
+    if not 1 <= D <= REFINE_MAX_DEGREE:
+        raise ValueError(f"{where}: degree D={D} outside 1..{REFINE_MAX_DEGREE}")
+    if not 0 <= dm.n_max_gaps <= REFINE_MAX_GAPS:
+        raise ValueError(f"{where}: n_max_gaps={dm.n_max_gaps} outside "
+                         f"0..{REFINE_MAX_GAPS}")
+    if dm.device.type != "cuda":
+        raise ValueError(f"{where} runs on cpu or cuda, not {dm.device}")
+    for name, (t, _d, _s) in named.items():
+        if t.device != dm.device:
+            raise ValueError(f"{where}: {name} is on {t.device}, the model on "
+                             f"{dm.device}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(wrapper, entry: str, device: torch.device, args: list) -> None:
+    """One launch of ``entry`` on the current stream of ``device``, counted
+    on ``wrapper``; raises with the CUDA error string if it is refused."""
+    lib = _build.refine_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{lib.dbg_cuda_error_string(rc).decode()}")
+    wrapper.launches += 1
+
+
+def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
+                          lens: torch.Tensor, map_nodes: torch.Tensor
+                          ) -> AdaptiveTables:
+    """R1: the mapping-constrained forward storing per-step active tables
+    (ref: forward.rs:51-77 forward_with_mapping): nodes, m, i, d [L, B, A],
+    off [L, B], e [B] (the read log-likelihood, offset applied).
+
+    A model on the CPU runs :func:`forward_mapped_tables_reference`.  On a
+    CUDA device the model is float32 or float64 (its degree at most
+    REFINE_MAX_DEGREE, n_max_gaps at most REFINE_MAX_GAPS), codes [B, L],
+    lens [B] and map_nodes [B, L, A] (-1 pad, A <= REFINE_MAX_WIDTH) are
+    contiguous int32 on its device, and ``dbg_refine_forward`` of
+    ``csrc/refine.cu`` runs on the current stream."""
+    if dm.device.type == "cpu":
+        return forward_mapped_tables_reference(dm, codes, lens, map_nodes)
+    i32 = (torch.int32,)
+    B, L = codes.shape if codes.dim() == 2 else (-1, -1)
+    A = map_nodes.shape[-1] if map_nodes.dim() == 3 else -1
+    _check("forward_mapped_tables", dm,
+           dict(codes=(codes, i32, (B, L)), lens=(lens, i32, (B,)),
+                map_nodes=(map_nodes, i32, (B, L, A))), A, REFINE_MAX_WIDTH)
+    dt, dev = dm.dtype, dm.device
+    tab = lambda: torch.empty((L, B, A), dtype=dt, device=dev)
+    out = AdaptiveTables(
+        nodes=torch.empty((L, B, A), dtype=torch.int32, device=dev),
+        m=tab(), i=tab(), d=tab(),
+        off=torch.empty((L, B), dtype=dt, device=dev),
+        e=torch.empty((B,), dtype=dt, device=dev))
+    if B:
+        lt = torch.stack(list(dm.lt))
+        _launch(forward_mapped_tables, "dbg_refine_forward", dev,
+                [_DTYPE_CODE[dt]]
+                + [_ptr(t) for t in (dm.emission, dm.init_logp, dm.parent_idx,
+                                     dm.parent_logt, lt, codes, lens,
+                                     map_nodes, *out)]
+                + [B, L, A, int(dm.parent_idx.shape[1]), dm.n_max_gaps])
+    return out
+
+
+forward_mapped_tables.launches = 0
+
+
+def decode_from_forward(dm: DeviceModel, codes: torch.Tensor,
+                        lens: torch.Tensor, f: AdaptiveTables, n_active: int,
+                        max_ratio):
+    """R2 with the decode's ends: the backward-by-forward + per-position
+    top-k decode over the stored forward tables (ref: backward.rs:101-142,
+    table.rs:500-517), k = min(n_active, K) for K stored cells.
+
+    A model on the CPU runs :func:`decode_from_forward_reference`.  On a
+    CUDA device the model is float32 or float64 (degree and n_max_gaps as
+    in :func:`forward_mapped_tables`); the tables' nodes [L, B, K] int32
+    (K <= DECODE_MAX_CELLS), m / i / d [L, B, K] in the model's dtype or
+    bfloat16, off [L, B] and e [B] in the model's dtype, codes and lens
+    int32, all contiguous on its device; ``dbg_refine_decode`` of
+    ``csrc/refine.cu`` runs the scan on the current stream and
+    :func:`_decode_finish` the rest.  Returns (logp [B], map_nodes
+    [B, L, k], map_logp [B, L, k])."""
+    if dm.device.type == "cpu":
+        return decode_from_forward_reference(dm, codes, lens, f, n_active,
+                                             max_ratio)
+    i32, dt = (torch.int32,), dm.dtype
+    L, B, K = f.nodes.shape if f.nodes.dim() == 3 else (-1, -1, -1)
+    _check("decode_from_forward", dm,
+           dict(codes=(codes, i32, (B, L)), lens=(lens, i32, (B,)),
+                nodes=(f.nodes, i32, (L, B, K)),
+                m=(f.m, (dt, torch.bfloat16), (L, B, K)),
+                i=(f.i, (f.m.dtype,), (L, B, K)),
+                d=(f.d, (f.m.dtype,), (L, B, K)),
+                off=(f.off, (dt,), (L, B)), e=(f.e, (dt,), (B,))),
+           K, DECODE_MAX_CELLS)
+    if n_active < 1:
+        raise ValueError(f"decode_from_forward: n_active={n_active} < 1")
+    tops_logp, tops_nodes = decode_tops(dm, codes, lens, f, min(n_active, K),
+                                        max_ratio)
+    return _decode_finish(dm, lens, f, tops_logp, tops_nodes, max_ratio)
+
+
+decode_from_forward.launches = 0
+
+
+def decode_tops(dm: DeviceModel, codes: torch.Tensor, lens: torch.Tensor,
+                f: AdaptiveTables, k: int, max_ratio):
+    """R2's launch alone, on inputs :func:`decode_from_forward` has checked:
+    the scan's per-step top ``k`` (tops_logp, tops_nodes), [L, B, k] in
+    scan order (counted on ``decode_from_forward.launches``)."""
+    L, B, K = f.nodes.shape
+    dev = dm.device
+    tops_logp = torch.empty((L, B, k), dtype=dm.dtype, device=dev)
+    tops_nodes = torch.empty((L, B, k), dtype=torch.int32, device=dev)
+    if B:
+        lt = torch.stack(list(dm.lt))
+        ratio = 0.0 if max_ratio is None else float(max_ratio)
+        _launch(decode_from_forward, "dbg_refine_decode", dev,
+                [_DTYPE_CODE[dm.dtype], _DTYPE_CODE[f.m.dtype]]
+                + [_ptr(t) for t in (dm.emission, dm.child_idx, dm.child_logt,
+                                     lt, codes, lens, *f, tops_logp,
+                                     tops_nodes)]
+                + [B, L, K, k, int(dm.parent_idx.shape[1]), dm.n_max_gaps,
+                   int(max_ratio is not None), ctypes.c_double(ratio)])
+    return tops_logp, tops_nodes
+
+
 def mappings_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
                              lens: torch.Tensor, n_top: int = 40,
                              n_active: int = 40, max_ratio: float = None,
                              n_warmup: int = 16, stored_k: Optional[int] = None,
                              store_bf16: bool = False):
     """Sparse-adaptive forward + backward-by-forward decode (ref: freq.rs:60
-    run_sparse_adaptive + hint.rs:124-142).
+    run_sparse_adaptive + hint.rs:124-142); the decode is R2.
 
     Returns (logp [B], map_nodes [B, L, k], map_logp [B, L, k]) on dm's
     device, k = min(n_active, stored cells)."""
@@ -419,20 +631,18 @@ def mappings_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
         f = forward_sparse_adaptive(dm, codes, lens, n_top=n_top,
                                     n_warmup=n_warmup, max_ratio=max_ratio,
                                     stored_k=stored_k, store_bf16=store_bf16)
-        return _decode_mappings_from_forward(dm, codes, lens, f, n_active,
-                                             max_ratio)
+        return decode_from_forward(dm, codes, lens, f, n_active, max_ratio)
 
 
 def mappings_refine(dm: DeviceModel, codes: torch.Tensor, lens: torch.Tensor,
                     hint_nodes: torch.Tensor, n_active: int = 40,
                     max_ratio: float = None):
     """Hint-seeded mapping regeneration: forward/backward restricted to the
-    hint's per-base active sets, then score-ratio re-selection
-    (ref: hint.rs:206-216 run_with_mapping).
+    hint's per-base active sets (R1, then R2), then score-ratio
+    re-selection (ref: hint.rs:206-216 run_with_mapping).
 
     Returns (logp [B], map_nodes [B, L, n_active'], map_logp), on dm's
     device; ``logp`` is the mapping-constrained read log-likelihood."""
     with torch.no_grad():
         f = forward_mapped_tables(dm, codes, lens, hint_nodes)
-        return _decode_mappings_from_forward(dm, codes, lens, f, n_active,
-                                             max_ratio)
+        return decode_from_forward(dm, codes, lens, f, n_active, max_ratio)

@@ -1,5 +1,5 @@
-"""The K1, K2 and K3 CUDA kernels against their plain PyTorch twins, on an
-NVIDIA GPU.
+"""The K1, K2 and K3 CUDA kernels and the refine's R1 and R2 against
+their plain PyTorch versions, on an NVIDIA GPU.
 
 Every test here needs a card and skips without one.  This file imports
 nothing of JAX or of the JAX package, so it runs on a machine that has only
@@ -19,8 +19,9 @@ from dbgphmm_tpu_torch.multi_dbg.seed import seed_mappings_arrays
 from dbgphmm_tpu_torch.phmm.params import PHMMParams
 from dbgphmm_tpu_torch.phmm.template import make_template
 from dbgphmm_tpu_torch.seq import genome as G
+from dbgphmm_tpu_torch.ops import adaptive as AD
 from dbgphmm_tpu_torch.ops import mapped_scorer as T
-from dbgphmm_tpu_torch.ops.forward import pad_reads
+from dbgphmm_tpu_torch.ops.forward import DeviceModel, _log_trans, pad_reads
 from dbgphmm_tpu_torch.ops.sparse import pad_mappings, precompute_positions
 
 pytestmark = pytest.mark.cuda
@@ -317,3 +318,133 @@ def test_sharded_paths_on_one_card_match_unsharded(cuda):
         np.testing.assert_array_equal(np.isfinite(got), fin)
         assert (np.abs(got - local)[fin]
                 <= 1e-5 * np.abs(local[fin]) + 0.05).all(), space
+
+
+# -- the refine's scans R1 and R2 ---------------------------------------------
+
+
+def random_refine_case(n, D, B, L, A, dtype, seed, device="cpu", n_max_gaps=4):
+    """A random model (n nodes, D parent / child columns, about half of them
+    -inf), reads of unequal lengths (read 0 full, the rest 0..L bases) and
+    a hint [B, L, A] of random nodes with ~30% -1 slots (duplicates
+    included): (DeviceModel, codes, lens, hint) on ``device``."""
+    rng = np.random.default_rng(seed)
+
+    def logs(shape, p_neg):
+        v = np.log(rng.random(shape) * 0.9 + 0.05)
+        v[rng.random(shape) < p_neg] = -np.inf
+        return v
+
+    f = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    i32 = lambda a: torch.tensor(np.asarray(a, dtype=np.int32), device=device)
+    lt = np.log([0.9, 0.8, 0.7, 0.05, 0.15, 0.1, 0.05, 0.05, 0.2, 0.99,
+                 0.003, 0.25, 0.5])
+    dm = DeviceModel(
+        emission=i32(rng.integers(0, 5, n)), init_logp=f(logs(n, 0.3)),
+        parent_idx=i32(rng.integers(0, n, (n, D))),
+        parent_logt=f(logs((n, D), 0.5)),
+        child_idx=i32(rng.integers(0, n, (n, D))),
+        child_logt=f(logs((n, D), 0.5)),
+        lt=_log_trans(lt, device, dtype), n_max_gaps=n_max_gaps)
+    lens = rng.integers(0, L + 1, B)
+    lens[0] = L
+    codes = rng.integers(0, 4, (B, L))
+    codes[np.arange(L)[None, :] >= lens[:, None]] = -1
+    hint = rng.integers(0, n, (B, L, A))
+    hint[rng.random((B, L, A)) < 0.3] = -1
+    return dm, i32(codes), i32(lens), i32(hint)
+
+
+def rel_err(got, ref, scale=None):
+    """max |got - ref| / max(|ref|, scale, 1) over the finite entries, after
+    asserting the same -inf / +inf pattern.  A decode's log posterior is
+    (F + B + offsets) - log P(read): its rounding is that of terms as large
+    as the read's log-likelihood, so ``scale`` is |e| of its read there."""
+    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(ref))
+    fin = np.isfinite(ref)
+    assert np.isfinite(got[fin]).all()
+    if not fin.any():
+        return 0.0
+    den = np.maximum(np.abs(ref), 1.0)
+    if scale is not None:
+        s = np.abs(scale.double().cpu().numpy()).reshape(
+            scale.shape + (1,) * (ref.ndim - scale.ndim))
+        den = np.maximum(den, np.where(np.isfinite(s), s, 1.0))
+    return float(np.max(np.abs(got[fin] - ref[fin]) / den[fin]))
+
+
+REFINE_TOL = {torch.float64: 1e-9, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("A,D", [(16, 2), (64, 3), (256, 4)])
+def test_refine_kernels_match_plain(cuda, A, D, dtype):
+    """R1 and R2 against their plain versions on the card: stored node ids
+    equal; m / i / d, off, e and the decode's map_logp to 1e-9 (float64) or
+    1e-5 (float32) relative (to max(|x|, 1); map_logp to max(|x|, |e|, 1)
+    of its read, see rel_err), with the same -inf pattern;
+    >= 99.9% equal top-1 nodes; one launch each."""
+    dm, codes, lens, hint = random_refine_case(4 * A, D, 6, 120, A, dtype,
+                                                seed=A + D, device=cuda)
+    n1, n2 = AD.forward_mapped_tables.launches, AD.decode_from_forward.launches
+    got = AD.forward_mapped_tables(dm, codes, lens, hint)
+    ref = AD.forward_mapped_tables_reference(dm, codes, lens, hint)
+    assert AD.forward_mapped_tables.launches == n1 + 1
+    assert torch.equal(got.nodes, ref.nodes)
+    tol = REFINE_TOL[dtype]
+    for name in ("m", "i", "d", "off", "e"):
+        assert rel_err(getattr(got, name), getattr(ref, name)) <= tol, name
+    for ratio in (None, 10.0):
+        lp, mn, ml = AD.decode_from_forward(dm, codes, lens, ref, 40, ratio)
+        lp_r, mn_r, ml_r = AD.decode_from_forward_reference(dm, codes, lens,
+                                                            ref, 40, ratio)
+        assert rel_err(ml, ml_r, lp_r) <= tol
+        assert torch.equal(lp, lp_r)
+        assert (mn[..., 0] == mn_r[..., 0]).double().mean() >= 0.999
+    assert AD.decode_from_forward.launches == n2 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_decode_kernel_on_bf16_adaptive_tables(cuda, dtype):
+    """R2 on the sparse-adaptive forward's bfloat16 tables: 300 stored
+    cells (two per thread) and 64; the plain version's tolerance, map_logp
+    relative to max(|x|, |e|, 1) of its read."""
+    dm, codes, lens, _hint = random_refine_case(600, 3, 5, 80, 8, dtype,
+                                                 seed=7, device=cuda)
+    for stored_k in (None, 64):
+        f = AD.forward_sparse_adaptive(dm, codes, lens, n_top=100,
+                                       n_warmup=4, max_ratio=10.0,
+                                       stored_k=stored_k, store_bf16=True)
+        assert f.m.dtype == torch.bfloat16
+        got = AD.decode_from_forward(dm, codes, lens, f, 128, 10.0)
+        ref = AD.decode_from_forward_reference(dm, codes, lens, f, 128, 10.0)
+        assert rel_err(got[2], ref[2], ref[0]) <= REFINE_TOL[dtype]
+        assert (got[1][..., 0] == ref[1][..., 0]).double().mean() >= 0.999
+
+
+def test_refine_kernels_refuse_bad_inputs(cuda):
+    """A hint wider than 256 slots, an int64 or a non-contiguous hint, a
+    float16 model, more than 512 stored cells: ValueError, no launch."""
+    dm, codes, lens, hint = random_refine_case(64, 3, 2, 20, 16,
+                                                torch.float32, seed=1,
+                                                device=cuda)
+    n1, n2 = AD.forward_mapped_tables.launches, AD.decode_from_forward.launches
+    wide = torch.zeros((2, 20, 257), dtype=torch.int32, device=cuda)
+    for bad, what in ((wide, "width"), (hint.long(), "int64"),
+                      (hint.transpose(0, 1).contiguous().transpose(0, 1),
+                       "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            AD.forward_mapped_tables(dm, codes, lens, bad)
+    import dataclasses
+    half = dataclasses.replace(dm, init_logp=dm.init_logp.half())
+    with pytest.raises(ValueError, match="float16"):
+        AD.forward_mapped_tables(half, codes, lens, hint)
+    f = AD.forward_mapped_tables_reference(dm, codes, lens, hint)
+    big = f._replace(**{k: torch.cat([getattr(f, k)] * 33, dim=2)
+                        for k in ("nodes", "m", "i", "d")})
+    with pytest.raises(ValueError, match="width 528"):
+        AD.decode_from_forward(dm, codes, lens, big, 40, None)
+    assert AD.forward_mapped_tables.launches == n1
+    assert AD.decode_from_forward.launches == n2
