@@ -9,12 +9,15 @@ and the script exits non-zero:
 1. device     -- a CUDA GPU is present; its name and power limit (nvidia-smi).
 2. build      -- builds the three scorer kernels (csrc/mapped_scorer.cu: K1
                  and K2; csrc/mapped_scorer_linear.cu: K3; nvcc, sm_90a), the
-                 refine's two scans (csrc/refine.cu: R1 and R2) and the four
-                 host libraries (csrc/host/*.cpp, g++) from the checkout's
-                 sources, one compiler process each, all at once, after
-                 deleting any library an earlier run left; prints each
-                 kernel instance's ptxas registers and spills (0 spills
-                 asserted for the ten R1 / R2 instances).
+                 refine's two scans (csrc/refine.cu: R1 and R2), the
+                 sparse-adaptive forward's two (csrc/adaptive.cu: A1 and
+                 A2; both sources include csrc/refine_common.cuh) and the
+                 four host libraries (csrc/host/*.cpp, g++) from the
+                 checkout's sources, one compiler process each, all at
+                 once, after deleting any library an earlier run left;
+                 prints each kernel instance's ptxas registers and spills
+                 (0 spills asserted for the ten R1 / R2 and the eight A1 /
+                 A2 instances).
 3. infer      -- the port's CLI, ``sim-infer data/bench/data.json -d
                  data/bench/data.dbg -K 40 -I 1`` on all 98 reads (one
                  k-stage and the final full-neighbourhood pass; cut from
@@ -41,6 +44,24 @@ and the script exits non-zero:
                  events) on all 98 reads at full length, beside their bound
                  (refine_bound()), its share, and the plain versions' ms at
                  the cut and at the full shape.
+   adaptive_parity -- A1 and A2 against their plain version
+                 (forward_sparse_adaptive_reference) run on the card, with
+                 generate_mappings' settings: the dense-compute regime
+                 (n_warmup = L, A1 alone) on u500(8)'s first ADAPTIVE_READS
+                 reads cut to ADAPTIVE_L positions, and the evolving
+                 frontier (A1 for 16 positions, then A2; stored_k cells,
+                 bfloat16 in float32) on data/bench's first FRONTIER_READS
+                 reads cut to FRONTIER_LEN: in float64 the stored nodes
+                 and -inf patterns equal, m / i / d, off and e to 1e-9
+                 relative; in float32 e to 1e-5 and the tables (bfloat16
+                 rows too) bit for bit; R2's decode of both tables >= 99.9%
+                 equal top-1 nodes.  Then the main shapes (float32): A1 on
+                 all 30 u500(8) reads at full length, A2 at the frontier
+                 case; the plain version runs once there, timed, and both
+                 kernels' tables are held to it by the same float32 gates.
+                 A1 and A2 timed (CUDA events) beside their bound
+                 (adaptive_bound(); A2's cell-steps counted in the plain
+                 version's run), its share and the plain version's ms.
 4. k1_parity  -- K1 against its plain PyTorch twin run on the card in
                  float64: a real case (16 reads of the draft at full length,
                  the draft's copy numbers + 15 rescue candidates, NC trimmed
@@ -106,9 +127,9 @@ and the script exits non-zero:
                  after the build (``datasets``): generate_mappings from
                  scratch on the GPU for all reads.  u500(3) (3,567 full
                  edges) must take the dense decode, u500(8) (8,358) the
-                 dense-compute sparse-adaptive one (n_warmup = L; its
-                 decode is R2, launched once per call; the dense decode
-                 launches neither R1 nor R2); the first 4 reads' result
+                 dense-compute sparse-adaptive one (n_warmup = L: A1, then
+                 R2, each launched once per call; the dense decode
+                 launches none of R1, R2, A1, A2); the first 4 reads' result
                  against the CPU's float64 decode
                  (read log-likelihoods to 1e-4 relative, >= 99% equal
                  top-1 nodes); decode seconds, seconds per read base, the
@@ -127,18 +148,20 @@ and the script exits non-zero:
                  (43,743 full edges), each cut to its first FRONTIER_LEN
                  bases (the decode is bound by its per-position launches,
                  so its time follows the cut): the evolving-frontier decode
-                 (n_warmup 16, bfloat16 stored tables, decoded by R2); the
-                 same gates on the first read.
+                 (n_warmup 16, bfloat16 stored tables: A1, A2, then R2,
+                 once per call); the same gates on the first read.
 11. small_infer -- the CLI's ``sim-infer -K 41 -I 1`` on u500(8), in this
                  process: K1 ran, no twin did, no likelihood is NaN, the
-                 per-k files exist; the stage lines with decode_s and the
+                 per-k files exist; every mapping not refined from a hint
+                 launched A1; the stage lines with decode_s and the
                  ``# assembled=`` line.
 12. speed_test -- the benchmark (``dbgphmm_tpu_torch.bench.main``, what
                  ``speed-test`` runs) in this process: the synthetic and the
                  real-graph K1 parts at its full shapes, the fwd-bwd decode
                  at its B = 384 reads cut to SPEED_FB_L bases (the full
                  length runs in ``speed-test`` itself); K1 launched in both
-                 scorer parts, R2 in the fwd-bwd part, no twin ran, every
+                 scorer parts, A1, A2 and R2 in the fwd-bwd part, no twin
+                 ran, every
                  value finite and
                  positive; the three lines as the benchmark prints them.
 
@@ -190,9 +213,9 @@ float64 score run in a child process (this script with
 the phases that read them.  Each path's launch counters are set to 0 just
 before it runs and read just after.  Then, on lines of their
 own: the card's name and power limit as nvidia-smi prints them, the kernel
-table ({"kernels": [...]}: K1, K2, K3, R1, R2; K1's launches are
-small_infer's, R1's and R2's infer's), and last {"ok": true, "device":
-{...}}.
+table ({"kernels": [...]}: K1, K2, K3, R1, R2, A1, A2; K1's and A1's
+launches are small_infer's, R1's and R2's infer's, A2's speed_test's
+fwd-bwd part's), and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -222,12 +245,19 @@ KERNELS = {  # id: (module, wrapper, source, the TPU kernel or scan it replaces)
            "dbgphmm_tpu/ops/adaptive.py:631"),  # forward_mapped_tables
     "R2": (REFINE, "decode_from_forward", "dbgphmm_tpu_torch/csrc/refine.cu",
            "dbgphmm_tpu/ops/adaptive.py:533"),  # _decode_mappings_from_forward
+    # the sparse-adaptive forward's two lax.scans (forward_sparse_adaptive)
+    "A1": (REFINE, "adaptive_dense", "dbgphmm_tpu_torch/csrc/adaptive.cu",
+           "dbgphmm_tpu/ops/adaptive.py:349"),  # the dense warm-up
+    "A2": (REFINE, "adaptive_frontier", "dbgphmm_tpu_torch/csrc/adaptive.cu",
+           "dbgphmm_tpu/ops/adaptive.py:370"),  # the evolving frontier
 }
 TWINS = {"K1": "mapped_scores_log_reference",
          "K2": "mapped_scores_log_single_reference",
          "K3": "mapped_scores_linear_reference",
          "R1": "forward_mapped_tables_reference",
-         "R2": "decode_from_forward_reference"}
+         "R2": "decode_from_forward_reference",
+         "A1": "forward_sparse_adaptive_reference",
+         "A2": "forward_sparse_adaptive_reference"}
 REL_TOL, ABS_TOL = 1e-5, 0.05  # per-read kernel vs float64 twin
 # positions of the synthetic cases: they vary the slot sets' shapes, not
 # the reads' length; their float64 twins are bound by the host's launch
@@ -313,12 +343,16 @@ def ptxas_of(output):
             r1 = re.search(r"refine_forwardI([fd])E", m.group(1))
             r2 = re.search(r"refine_decodeI([fd])(f|d|13__nv_bfloat16)Li(\d)E",
                            m.group(1))
+            a12 = re.search(r"adaptive_(dense|frontier)I([fd])(f|d|13__nv_bfloat16)E",
+                            m.group(1))
             ty = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
             entry = (f"log_scorer<RW={k.group(1)},RENORM={k.group(2)}>" if k
                      else f"linear_scorer<RW={lin.group(1)}>" if lin
                      else f"refine_forward<{ty[r1.group(1)]}>" if r1
                      else (f"refine_decode<{ty[r2.group(1)]},{ty[r2.group(2)]},"
                            f"SPT={r2.group(3)}>") if r2
+                     else (f"adaptive_{a12.group(1)}<{ty[a12.group(2)]},"
+                           f"{ty[a12.group(3)]}>") if a12
                      else m.group(1))
             out.append({"entry": entry})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -647,6 +681,243 @@ def phase_refine_parity(device, params, ds, dbg, first):
                                      width=int(h.shape[2]), k=k, **main),
          max_abs_err_f32=err32)
     return res
+
+
+ADAPTIVE_READS, ADAPTIVE_L = 8, 1000  # adaptive_parity's dense-compute cut
+
+
+def cell_cost(dm):
+    """[n]: the exp / log (log1p) of one cell-step of node j, as for R1
+    (refine_bound) plus the ladd3 that ranks the cell (4): 18 + 2G + (2 +
+    G) S with S = P + 1 for P finite parent columns (0 where P = 0)."""
+    import torch
+
+    G = dm.n_max_gaps
+    P = torch.isfinite(dm.parent_logt).sum(1)
+    S = (P + 1) * (P > 0)
+    return 18 + 2 * G + (2 + G) * S
+
+
+def frontier_work(dm, run):
+    """``run()``, a run of the plain version, with A2's work counted:
+    (its result, (live cell-steps, their exp / log)).  A live cell-step is
+    a node of a set the frontier steps, at a position inside its read;
+    its exp / log are cell_cost's."""
+    import torch
+
+    from dbgphmm_tpu_torch.ops import adaptive as AD
+
+    per, step = cell_cost(dm), AD._s_step_attrs
+    acc = torch.zeros(2, dtype=torch.int64, device=per.device)
+
+    def counted(dm_, st, cur, attrs, codes, valid):
+        live = (cur >= 0) & valid[:, None]
+        acc[0] += live.sum()
+        acc[1] += (per[cur.clamp(min=0).long()] * live).sum()
+        return step(dm_, st, cur, attrs, codes, valid)
+
+    AD._s_step_attrs = counted
+    try:
+        res = run()
+    finally:
+        AD._s_step_attrs = step
+    return res, tuple(int(x) for x in acc.cpu())
+
+
+def adaptive_bound(kid, dm, codes, lens, f, A, W, clock_hz, n_sm,
+                   frontier_counts=None):
+    """The least time the card could take for one launch of A1 or A2 on
+    these inputs (ms) and what sets it.  Bytes: each input read once (the
+    model's arrays the kernel takes, codes, lens; A2 also A1's carry) and
+    each output written once (its rows of the stored tables nodes / m / i
+    / d [rows, B, K] in their type, off, e; A1 also the carry [B, A] and
+    its scalars).  Operations: the exp / log per live cell-step
+    (cell_cost).  A live cell-step of A1 is a node at a position inside
+    its read and the warm-up (the dense step computes every node); A2's
+    are those of the sets it steps (up to A cells a position), counted by
+    frontier_work in a run of the plain version on the same inputs
+    (``frontier_counts``)."""
+    import torch
+
+    L, B, K = f.nodes.shape
+    n = dm.parent_idx.shape[0]
+    el = torch.finfo(dm.dtype).bits // 8
+    sel = f.m.element_size()
+    steps = torch.arange(L, device=lens.device)[:, None]
+    inside = steps < lens[None, :]
+    live_pos = int((inside & ((steps < W) if kid == "A1" else (steps >= W))).sum())
+    if kid == "A1":
+        trans = int(cell_cost(dm).sum()) * live_pos
+        live = n * live_pos
+        rows = W
+        model = (dm.emission, dm.init_logp, dm.parent_idx, dm.parent_logt)
+    else:
+        live, trans = frontier_counts
+        rows = L - W
+        model = (dm.emission, dm.init_logp, dm.parent_idx, dm.parent_logt,
+                 dm.child_idx, dm.child_logt)
+    nbytes = sum(t.numel() * t.element_size() for t in model)
+    nbytes += codes.numel() * 4 + lens.numel() * 4
+    nbytes += B * A * (4 + 3 * el) + 5 * B * el  # the carry
+    nbytes += rows * B * K * (4 + 3 * sel) + rows * B * el + B * el
+    times = {"operations": trans / (MUFU_PER_SM_CLK * n_sm * clock_hz),
+             "bytes": nbytes / PEAK_HBM}
+    by = max(times, key=times.get)
+    return dict(bound_ms=times[by] * 1e3, bound_by=by, live_cell_steps=live,
+                cells_per_step=live / max(live_pos, 1),
+                transcendentals=trans, bytes=nbytes,
+                mufu_ms=times["operations"] * 1e3, bytes_ms=times["bytes"] * 1e3)
+
+
+def hold_adaptive(dm, c, l, got, ref, n_active, ratio, what):
+    """A1 / A2's tables ``got`` against the plain version's ``ref``: the
+    stored nodes and the -inf patterns equal; in float64 m / i / d, off
+    and e to 1e-9 relative, in float32 e to 1e-5 and m / i / d (bfloat16
+    rows too) and off bit for bit; R2's decode of both: >= 99.9% equal
+    top-1 nodes.  Returns (relative errors, top-1 agreement)."""
+    import torch
+
+    from dbgphmm_tpu_torch.ops import adaptive as AD
+
+    assert torch.equal(got.nodes, ref.nodes), (what, "stored nodes")
+    rel = {k: rel_err(getattr(got, k), getattr(ref, k))[0]
+           for k in ("m", "i", "d", "off", "e")}
+    if dm.dtype == torch.float64:
+        assert max(rel.values()) <= REFINE_TOL["float64"], (what, rel)
+    else:
+        assert rel["e"] <= REFINE_TOL["float32"], (what, rel)
+        for k in ("m", "i", "d", "off"):
+            assert torch.equal(getattr(got, k), getattr(ref, k)), (what, k)
+    dec = AD.decode_from_forward(dm, c, l, got, n_active, ratio)
+    dec_ref = AD.decode_from_forward(dm, c, l, ref, n_active, ratio)
+    agree = top1_agree(dec[1], dec_ref[1])
+    assert agree >= 0.999, (what, agree)
+    return rel, agree
+
+
+def phase_adaptive_parity(device, params, u8_json, u8_dbg):
+    """A1 and A2 against their plain version (forward_sparse_adaptive_
+    reference) run on the card, held by hold_adaptive().  The dense-
+    compute regime (n_warmup = L: A1 alone) on u500(8)'s first
+    ADAPTIVE_READS reads cut to ADAPTIVE_L positions, and the evolving
+    frontier (A1 for 16 positions, then A2; stored_k cells, bfloat16 in
+    float32) on data/bench's first FRONTIER_READS reads cut to
+    FRONTIER_LEN, as generate_mappings sets them, in float64 and float32.
+    Then the main shapes in float32: A1 on all 30 u500(8) reads at full
+    length (small_infer's and adaptive_decode's launch) and A2 at the
+    frontier case's shape (frontier_decode's): the plain version runs
+    once there, timed, and the kernels' tables are held to it.  A1 and A2
+    timed with CUDA events (A2 its launch alone, after A1's warm-up),
+    beside their bounds (adaptive_bound()) and shares, and the plain
+    version's ms (A2's: the whole forward, warm-up included)."""
+    import numpy as np
+    import torch
+
+    from dbgphmm_tpu_torch.e2e import Dataset
+    from dbgphmm_tpu_torch.multi_dbg import output as out
+    from dbgphmm_tpu_torch.multi_dbg import posterior as TP
+    from dbgphmm_tpu_torch.ops import adaptive as AD
+    from dbgphmm_tpu_torch.ops.forward import pad_reads, to_device
+
+    t0 = time.perf_counter()
+    n_active, ratio = TP.MAPPING_WIDTH_CAP, params.active_node_max_ratio
+
+    def settings(dm, n_full, L):
+        """forward_sparse_adaptive's arguments as generate_mappings picks
+        them."""
+        return dict(max_ratio=ratio, **TP.sparse_adaptive_args(
+            n_full, int(dm.parent_idx.shape[1]), L, n_active, dm.dtype))
+
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                                    device=device)
+    bench = ROOT / "data/bench/data.json", ROOT / "data/bench/data.dbg"
+    cases = {"dense_compute": (u8_json, u8_dbg, ADAPTIVE_READS, ADAPTIVE_L, False),
+             "frontier": (*bench, FRONTIER_READS, FRONTIER_LEN, True)}
+    out_d, err32, full = {}, {"A1": 0.0, "A2": 0.0}, {}
+    for name, (js, dbg_path, n_reads, cut, frontier) in cases.items():
+        reads = list(Dataset.from_json_file(js).reads)
+        dbg = out.from_dbg_file(dbg_path)
+        n_full = dbg.n_edges_full()
+        assert (n_full > TP.DENSE_COMPUTE_MAX_NODES) == frontier, (name, n_full)
+        model = dbg.to_phmm(params, mode="non_zero")
+        codes, lens = pad_reads(reads)
+        c = i32(codes[:n_reads, :cut])
+        l = i32(np.minimum(lens[:n_reads], cut))
+        # A1's main shape: every u500(8) read at full length; A2's: the
+        # frontier_decode phase's reads
+        full[name] = ((n_full, model, c, l) if frontier
+                      else (n_full, model, i32(codes), i32(lens)))
+        res = {}
+        for dt in (torch.float64, torch.float32):
+            dm = to_device(model, device, dt)
+            kw = settings(dm, n_full, int(c.shape[1]))
+            n1, n2 = AD.adaptive_dense.launches, AD.adaptive_frontier.launches
+            got = AD.forward_sparse_adaptive(dm, c, l, **kw)
+            plain = lambda: AD.forward_sparse_adaptive_reference(dm, c, l, **kw)
+            if frontier and dt == torch.float32:  # A2's main shape
+                ref, a2_work = frontier_work(dm, plain)
+            else:
+                ref = plain()
+            assert AD.adaptive_dense.launches == n1 + 1
+            assert AD.adaptive_frontier.launches == n2 + int(frontier)
+            rel, agree = hold_adaptive(dm, c, l, got, ref, n_active, ratio,
+                                       (name, str(dt)))
+            if dt == torch.float32:
+                kid = "A2" if frontier else "A1"
+                err32[kid] = max(err32[kid], rel_err(got.e, ref.e)[1])
+            res[str(dt).split(".")[1]] = dict(
+                rel=rel, top1_agree=agree, cells=int(got.nodes.shape[2]),
+                stored=str(got.m.dtype).split(".")[1], **{
+                    k: v for k, v in kw.items() if k != "max_ratio"})
+        out_d[name] = dict(reads=int(c.shape[0]), positions=int(c.shape[1]),
+                           n=int(dm.init_logp.shape[0]),
+                           D=int(dm.parent_idx.shape[1]), **res)
+
+    # the main shapes, float32: A1 over all of u500(8) (the dense-compute
+    # regime), A2 over the frontier case
+    clock, n_sm = sm_clock_hz(), torch.cuda.get_device_properties(
+        device).multi_processor_count
+    main, resd = {}, {}
+    for kid, name in (("A1", "dense_compute"), ("A2", "frontier")):
+        n_full, model, c, l = full[name]
+        dm = to_device(model, device, torch.float32)
+        B, L = c.shape
+        kw = settings(dm, n_full, int(L))
+        f = AD.forward_sparse_adaptive(dm, c, l, **kw)
+        held = {}  # the plain version once: timed and held to
+        plain = cuda_ms(lambda: held.setdefault(
+            "f", AD.forward_sparse_adaptive_reference(dm, c, l, **kw)), 1,
+            warmup=False)
+        rel, agree = hold_adaptive(dm, c, l, f, held["f"], n_active, ratio,
+                                   (name, "main shape"))
+        err32[kid] = max(err32[kid], rel_err(f.e, held["f"].e)[1])
+        assert bool(torch.isfinite(f.e).all()), (kid, f.e)
+        n, D = dm.parent_idx.shape
+        A = min(kw["n_top"] * (D + 1), n)
+        K, W = int(f.nodes.shape[2]), min(kw["n_warmup"], L)
+        if kid == "A1":
+            run = lambda: AD.forward_sparse_adaptive(dm, c, l, **kw)
+        else:  # A2's launch alone, from a carry A1 made
+            tabs = AD.AdaptiveTables(*(torch.empty_like(t) for t in f))
+            carry = (torch.empty((B, A), dtype=torch.int32, device=device),
+                     *(torch.empty((B, A), device=device) for _ in range(3)),
+                     torch.empty((B, 5), device=device))
+            lt = torch.stack(list(dm.lt))
+            AD.adaptive_dense(dm, lt, c, l, tabs, carry, A, K, W)
+            run = lambda: AD.adaptive_frontier(dm, lt, c, l, tabs, carry, A, K,
+                                               W, kw["n_top"], kw["max_ratio"])
+        ms = cuda_ms(run, 3)
+        bnd = adaptive_bound(kid, dm, c, l, f, A, W, clock, n_sm,
+                             frontier_counts=a2_work)
+        main[kid] = dict(case=name, reads=int(B), L=int(L), n=int(n), A=A, K=K,
+                         W=W, ms=ms, plain_ms=plain, rel=rel, top1_agree=agree,
+                         us_per_position=ms * 1e3 / (W if kid == "A1" else L - W),
+                         **bnd, share_of_bound=bnd["bound_ms"] / ms)
+        resd[kid] = dict(max_abs_err=err32[kid], ms=ms, plain_ms=plain,
+                         bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+    emit("adaptive_parity", t0, parity=out_d, main_shape=main,
+         max_abs_err_f32=err32)
+    return resd
 
 
 def phase_k1_parity(device, params, ds, dbg, maps98):
@@ -1203,7 +1474,7 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
             per_mapping.append(dict(
                 k=dbg.k, reads=len(reads),
                 **{f"{kid.lower()}_launches": n1[0][kid] - n0[0][kid]
-                   for kid in ("R1", "R2")},
+                   for kid in ("R1", "R2", "A1", "A2")},
                 twin_calls=sum(n1[1].values()) - sum(n0[1].values())))
             if "maps" not in first:
                 times = kw.get("times")
@@ -1238,6 +1509,10 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
     # sparse-adaptive decode: R2 in each, R1 wherever there was a hint
     assert launches["R1"] > 0 and launches["R2"] >= launches["R1"], launches
     assert all(m["r2_launches"] > 0 for m in per_mapping), per_mapping
+    # a mapping that is not refined from a hint decodes from scratch: the
+    # sparse-adaptive forward's A1 (A2 only on the frontier)
+    assert all(m["r1_launches"] > 0 or m["a1_launches"] > 0
+               for m in per_mapping), per_mapping
     assert not any(twins.values()), f"{phase}: a twin ran on CUDA: {twins}"
     lls = np.asarray([s.score.likelihood for s in post.samples])
     assert not np.isnan(lls).any(), f"{phase}: NaN likelihood"
@@ -1252,6 +1527,7 @@ def run_sim_infer(phase, json_path, dbg_path, k_max, ks, out_dir):
     emit(phase, t0, argv=argv[:1] + argv[4:], launches=launches["K1"],
          k1_launches_per_stage=per_stage,
          r1_launches=launches["R1"], r2_launches=launches["R2"],
+         a1_launches=launches["A1"], a2_launches=launches["A2"],
          refine_launches_per_mapping=per_mapping,
          twin_calls=twins["K1"], final_k=dbg.k, n_samples=len(lls),
          n_finite=int(np.isfinite(lls).sum()), log=tail,
@@ -1453,10 +1729,12 @@ def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
                    for c in calls), calls
     if name == "frontier":
         assert all(c["n_warmup"] == 16 and c["store_bf16"] for c in calls), calls
-    # the sparse-adaptive decodes run R2 once per call, the dense one
-    # neither kernel; no plain version ran
+    # the sparse-adaptive decodes run A1 (the frontier also A2) and R2 once
+    # per call, the dense one none of them; no plain version ran
     want_r2 = 0 if name == "dense" else len(calls)
     assert launches["R2"] == want_r2 and launches["R1"] == 0, (name, launches)
+    assert launches["A1"] == want_r2, (name, launches)
+    assert launches["A2"] == (want_r2 if name == "frontier" else 0), (name, launches)
     assert not any(twins.values()), (name, twins)
     assert np.isfinite(maps.read_logps).all(), maps.read_logps
     chunk = [ln for ln in buf.getvalue().splitlines()
@@ -1466,7 +1744,8 @@ def phase_decode(name, device, params, json_path, dbg_path, ref_proc, tmp,
     ref = cpu_reference_of(ref_proc, tmp, name)
     rel, agree = hold_to_reference(maps, ref, name)
     emit(f"{name}_decode", t0, reads=len(reads), bases=bases, full_edges=n,
-         calls=calls, r2_launches=launches["R2"], decode_s=times.decode_s,
+         calls=calls, r2_launches=launches["R2"], a1_launches=launches["A1"],
+         a2_launches=launches["A2"], decode_s=times.decode_s,
          decode_s_per_read_base=times.decode_s / bases,
          width=max(a.shape[1] for a in maps.nodes), dense_chunk=chunk,
          ref_reads=len(ref["read_logps"]), max_rel_logp_diff=rel,
@@ -1577,8 +1856,9 @@ def phase_speed_test(device):
     """``bench.main`` in this process: the two K1 parts at the benchmark's
     full shapes, the fwd-bwd part at B = 384 reads of SPEED_FB_L bases.
     Each part's launch counters are set to 0 just before it and read just
-    after: K1 launched in both scorer parts, R2 in the fwd-bwd decode, no
-    twin ran anywhere."""
+    after: K1 launched in both scorer parts, A1, A2 and R2 in the fwd-bwd
+    decode, no twin ran anywhere.  Returns the fwd-bwd part's A2
+    launches."""
     import numpy as np
 
     from dbgphmm_tpu_torch import bench
@@ -1607,15 +1887,17 @@ def phase_speed_test(device):
             setattr(bench, name, fn)
     for name in ("run_synthetic", "run_real_graph"):
         assert counts[name][0]["K1"] > 0, (name, counts[name])
-    assert counts["run_fwd_bwd"][0]["R2"] > 0, counts["run_fwd_bwd"]
+    fb = counts["run_fwd_bwd"][0]
+    assert fb["R2"] > 0 and fb["A1"] > 0 and fb["A2"] > 0, fb
     assert not any(v for _l, twins in counts.values() for v in twins.values()), counts
     assert [ln["metric"] for ln in lines][-1] == \
         "torch_real_graph_k1_scorings_per_sec_k40", lines
     assert all(np.isfinite(ln["value"]) and ln["value"] > 0 for ln in lines), lines
     emit("speed_test", t0, part_s=secs,
          k1_launches={n: c[0]["K1"] for n, c in counts.items()},
-         r2_launches=counts["run_fwd_bwd"][0]["R2"],
+         r2_launches=fb["R2"], a1_launches=fb["A1"], a2_launches=fb["A2"],
          values={ln["metric"]: ln["value"] for ln in lines})
+    return fb["A2"]
 
 
 TOOLS_VALIDATE = dict(reads=dict(length=600, min_length=300))  # cut from
@@ -2018,15 +2300,19 @@ def main():
     log = _build.BUILD_LOG
     ptxas = {stem: ptxas_of(log[stem]["output"])
              for stem in ("libmapped_scorer", "libmapped_scorer_linear",
-                          "librefine")}
+                          "librefine", "libadaptive")}
     # R1: float32, float64; R2: (float32, float64) x (own type, bfloat16)
-    # x one or two cells per thread
+    # x one or two cells per thread; A1, A2: (float32, float64) x (own
+    # type, bfloat16)
     assert len(ptxas["librefine"]) == 10, ptxas["librefine"]
-    assert all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
-               for e in ptxas["librefine"]), ptxas["librefine"]
+    assert len(ptxas["libadaptive"]) == 8, ptxas["libadaptive"]
+    for stem in ("librefine", "libadaptive"):
+        assert all(e.get("spill_stores") == 0 and e.get("spill_loads") == 0
+                   for e in ptxas[stem]), ptxas[stem]
     emit("build", t1, k1_k2_nvcc_s=log["libmapped_scorer"]["seconds"],
          k3_nvcc_s=log["libmapped_scorer_linear"]["seconds"],
          r1_r2_nvcc_s=log["librefine"]["seconds"],
+         a1_a2_nvcc_s=log["libadaptive"]["seconds"],
          host_gxx_s={n: log[f"lib{n}"]["seconds"] for n in _build.HOST_LIBS},
          ptxas=ptxas)
 
@@ -2046,6 +2332,7 @@ def main():
             maps98 = phase_mapping(params, ds, first)
             res = phase_refine_parity(device, params, ds, dbg, first)
             del first
+            res.update(phase_adaptive_parity(device, params, *u["adaptive"]))
             launches = {kid: infer_launches[kid] for kid in ("R1", "R2")}
             res["K1"], ctx = phase_k1_parity(device, params, ds, dbg, maps98)
             ctx["blocked"] = blocked_candidate(device, ctx)
@@ -2078,8 +2365,9 @@ def main():
             small_launches, _ = run_sim_infer("small_infer", *u["adaptive"], 41,
                                               (40, 41), Path(tmp) / "small_infer")
             launches["K1"] = small_launches["K1"]
+            launches["A1"] = small_launches["A1"]
             phase_tools(device, bench_json, Path(tmp))
-            phase_speed_test(device)
+            launches["A2"] = phase_speed_test(device)
         finally:
             if ref_proc.poll() is None:
                 ref_proc.kill()

@@ -24,10 +24,9 @@
 //
 // Both compute in the model's type (float32 on the card; float64 lets a
 // check hold them to their plain versions to 1e-9) and keep what the plain
-// versions keep: -inf is a true -inf, a log-sum-exp of an all -inf row is
-// -inf, ladd is torch.logaddexp, and a log-sum-exp over the parent (child)
-// columns skips a column whose log transition is -inf (its term is exactly
-// 0 in the plain sum).
+// versions keep, with refine_common.cuh's arithmetic (-inf is a true -inf,
+// ladd is torch.logaddexp, a log-sum-exp over the parent (child) columns
+// adds its exps in PyTorch's order).
 //
 // Design (what bounds it, and what each choice answers).
 //   * Work: a read's positions form one chain: every step needs the
@@ -56,147 +55,11 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o librefine.so refine.cu
 
-#include <cfloat>
-#include <cmath>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "refine_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;       // threads per block at most
-constexpr int MAX_D = 5;      // parent / child columns (the model's padded degree)
-constexpr int MAX_GAPS = 32;  // deletion-closure rounds
-constexpr int MULTI = 1 << 30;  // slot code flag: the node has more slots
-
-// dtype codes of the C entries
-constexpr int F32 = 0, F64 = 1, BF16 = 2;
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-    __device__ static float ex(float x) { return expf(x); }
-    __device__ static float lg(float x) { return logf(x); }
-    __device__ static float lg1p(float x) { return log1pf(x); }
-    __device__ static float tiny() { return FLT_MIN; }
-    // the plain version's clamp(min=1e-300), which float32 rounds to 0
-    __device__ static float log_floor() { return 0.f; }
-};
-template <> struct Num<double> {
-    __device__ static double ex(double x) { return exp(x); }
-    __device__ static double lg(double x) { return log(x); }
-    __device__ static double lg1p(double x) { return log1p(x); }
-    __device__ static double tiny() { return DBL_MIN; }
-    __device__ static double log_floor() { return 1e-300; }
-};
-
-template <typename T> __device__ __forceinline__ T ninf() { return (T)(-INFINITY); }
-template <typename T> __device__ __forceinline__ T pinf() { return (T)INFINITY; }
-
-template <typename T> __device__ __forceinline__ T to_t(T x) { return x; }
-template <typename T> __device__ __forceinline__ T to_t(__nv_bfloat16 x) {
-    return (T)__bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ bool finite(T x) {
-    return x > ninf<T>() && x < pinf<T>();
-}
-
-template <typename T> __device__ __forceinline__ T vmax(T a, T b) { return a > b ? a : b; }
-
-// torch.logaddexp: equal infinities stay; else max + log1p(exp(-|a - b|)).
-template <typename T> __device__ __forceinline__ T ladd(T a, T b) {
-    if (a == b && !finite(a)) return a;
-    const T mx = vmax(a, b);
-    const T mn = a > b ? b : a;
-    return mx + Num<T>::lg1p(Num<T>::ex(mn - mx));
-}
-
-template <typename T> __device__ __forceinline__ T ladd3(T a, T b, T c) {
-    return ladd(ladd(a, b), c);
-}
-
-// log-sum-exp of x[0..D), -inf terms skipped (exactly 0 in the sum); -inf
-// where every term is -inf.
-template <typename T> __device__ __forceinline__ T lse(const T (&x)[MAX_D], int D) {
-    T mx = ninf<T>();
-#pragma unroll
-    for (int d = 0; d < MAX_D; ++d)
-        if (d < D) mx = vmax(mx, x[d]);
-    if (mx == ninf<T>()) return mx;
-    T s = 0;
-#pragma unroll
-    for (int d = 0; d < MAX_D; ++d)
-        if (d < D && x[d] != ninf<T>()) s += Num<T>::ex(x[d] - mx);
-    return mx + Num<T>::lg(s);
-}
-
-// The slot of node u among nodes[0..n4) (n4 a multiple of 4, slots past the
-// set hold -1): -1 if absent, the first slot, with MULTI set if u holds
-// another slot too.
-__device__ __forceinline__ int find_slot(const int* __restrict__ nodes, int n4, int u) {
-    const int4* q = reinterpret_cast<const int4*>(nodes);
-    int first = -1, multi = 0;
-    for (int j = 0; j < (n4 >> 2); ++j) {
-        const int4 v = q[j];
-        const int hit[4] = {v.x == u, v.y == u, v.z == u, v.w == u};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            if (hit[c]) {
-                if (first < 0) first = 4 * j + c;
-                else multi = MULTI;
-            }
-        }
-    }
-    return first < 0 ? -1 : (first | multi);
-}
-
-// vals at the slot(s) of node u (code from find_slot): the maximum over
-// them, -inf if u has none.
-template <typename T>
-__device__ __forceinline__ T lookup(const T* vals, const int* nodes, int n4, int u, int code) {
-    if (code < 0) return ninf<T>();
-    if (!(code & MULTI)) return vals[code];
-    T best = ninf<T>();
-    for (int j = code & ~MULTI; j < n4; ++j)
-        if (nodes[j] == u) best = vmax(best, vals[j]);
-    return best;
-}
-
-template <typename T> __device__ __forceinline__ T block_max(T v, T* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = vmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    T r = red[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = vmax(r, red[w]);
-    return r;
-}
-
-template <typename T> __device__ __forceinline__ T block_sum(T v, T* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    T r = red[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r += red[w];
-    return r;
-}
-
-// The 13 log transition / emission values (LogTrans order).
-template <typename T> struct Trans {
-    T MM, IM, DM, MI, II, DI, MD, ID, DD, match, mismatch, random, end;
-    __device__ explicit Trans(const T* __restrict__ v)
-        : MM(v[0]), IM(v[1]), DM(v[2]), MI(v[3]), II(v[4]), DI(v[5]), MD(v[6]),
-          ID(v[7]), DD(v[8]), match(v[9]), mismatch(v[10]), random(v[11]),
-          end(v[12]) {}
-};
-
-// Kahan-compensated off += shift (ops/forward.py:_kahan).
-template <typename T> __device__ __forceinline__ void kahan(T& off, T& off_c, T shift) {
-    const T y = shift - off_c;
-    const T t = off + y;
-    off_c = (t - off) - y;
-    off = t;
-}
+constexpr int NT = 256;  // threads per block at most
 
 // ---------------------------------------------------------------- R1 ------
 
@@ -214,6 +77,8 @@ __global__ void __launch_bounds__(NT, 1) refine_forward(
     __shared__ T s_pm[NT], s_pi[NT];          // pre-M / pre-I of the previous set
     __shared__ T s_f[2][NT];                  // deletion closure, double-buffered
     __shared__ T s_red[3][NT / 32];
+    const StepSmem<T> sm{s_prev, s_cur, s_pm, s_pi, {s_f[0], s_f[1]},
+                         {s_red[0], s_red[1], s_red[2]}};
 
     const T NEG = ninf<T>();
     const Trans<T> lt(lt_v);
@@ -226,120 +91,15 @@ __global__ void __launch_bounds__(NT, 1) refine_forward(
     // the carry (ops/sparse.py:_s_init): no slot, Begin-match 0
     int node = -1;
     T m = NEG, i = NEG, d = NEG;
-    T mb = 0, ib = NEG, e = NEG, off = 0, off_c = 0;
+    ReadCarry<T> rc{0, NEG, NEG, 0, 0};
 
     int v_next = (own && len > 0) ? hint_b[a] : -1;
     for (int p = 0; p < len; ++p) {
         const int v = v_next;
         if (own && p + 1 < len) v_next = hint_b[(size_t)(p + 1) * A + a];
-        const bool ok = v >= 0;
-        int pidx[MAX_D];
-        T plogt[MAX_D];
-        T init = NEG;
-        int emis = -1;
-#pragma unroll
-        for (int c = 0; c < MAX_D; ++c) {
-            pidx[c] = -1;
-            plogt[c] = NEG;
-            if (ok && c < D) {
-                pidx[c] = parent_idx[(size_t)v * D + c];
-                plogt[c] = parent_logt[(size_t)v * D + c];
-            }
-        }
-        if (ok) {
-            emis = emission[v];
-            init = init_logp[v];
-        }
-        const int x = codes[(size_t)b * L + p];
-
-        s_prev[a] = node;
-        s_pm[a] = ladd3(lt.MM + m, lt.IM + i, lt.DM + d);
-        s_pi[a] = ladd3(lt.MI + m, lt.II + i, lt.DI + d);
-        s_cur[a] = v;
-        __syncthreads();
-
-        // M from the parents in the previous set and the Begin entry; I
-        // from the slot's own node there
-        const T begin = ladd(lt.MM + mb, lt.IM + ib);
-        const T ib_new = lt.random + ladd(lt.MI + mb, lt.II + ib);
-        const T begin_d = ladd(lt.MD + NEG, lt.ID + ib_new);  // mb_new = -inf
-        int cslot[MAX_D];
-        T m_new = NEG, i_new = NEG;
-        if (ok) {
-            T t[MAX_D];
-#pragma unroll
-            for (int c = 0; c < MAX_D; ++c) {
-                t[c] = NEG;
-                cslot[c] = -1;
-                if (c < D && plogt[c] != NEG) {
-                    const int ps = find_slot(s_prev, n4, pidx[c]);
-                    t[c] = plogt[c] + lookup(s_pm, s_prev, n4, pidx[c], ps);
-                    cslot[c] = find_slot(s_cur, n4, pidx[c]);
-                }
-            }
-            const T from_normal = lse(t, D);
-            const T from_begin = init + begin;
-            const T p_emit = emis == x ? lt.match : lt.mismatch;
-            m_new = p_emit + ladd(from_normal, from_begin);
-            i_new = lt.random + lookup(s_pi, s_prev, n4, v, find_slot(s_prev, n4, v));
-        }
-        s_f[0][a] = ladd(lt.MD + m_new, lt.ID + i_new);  // pre-D
-        __syncthreads();
-
-        // the deletion closure within the current set
-        T d_new = NEG;
-        if (ok) {
-            T t[MAX_D];
-#pragma unroll
-            for (int c = 0; c < MAX_D; ++c)
-                t[c] = cslot[c] < 0 ? NEG
-                                    : plogt[c] + lookup(s_f[0], s_cur, n4, pidx[c], cslot[c]);
-            d_new = ladd(lse(t, D), init + begin_d);
-        }
-        s_f[1][a] = d_new;
-        __syncthreads();
-        int src = 1;
-        for (int r = 0; r < G; ++r) {
-            T fdt = NEG;
-            if (ok) {
-                T t[MAX_D];
-#pragma unroll
-                for (int c = 0; c < MAX_D; ++c)
-                    t[c] = cslot[c] < 0
-                               ? NEG
-                               : plogt[c] + lt.DD +
-                                     lookup(s_f[src], s_cur, n4, pidx[c], cslot[c]);
-                fdt = lse(t, D);
-                d_new = ladd(d_new, fdt);
-            }
-            if (r + 1 < G) {
-                s_f[src ^ 1][a] = fdt;
-                __syncthreads();
-                src ^= 1;
-            }
-        }
-
-        // renormalise by the largest live M (0 where there is none)
-        const T mx = block_max(m_new, s_red[0]);
-        const T shift = mx == NEG ? T(0) : mx;
-        if (p == len - 1) {
-            // e, needed only at the read's last position (it feeds nothing)
-            const T x3 = ladd3(m_new, i_new, d_new);
-            const T emx = block_max(x3, s_red[1]);
-            T tot = NEG;
-            if (emx != NEG) {
-                const T s = block_sum(x3 == NEG ? T(0) : Num<T>::ex(x3 - emx), s_red[2]);
-                tot = emx + Num<T>::lg(s);
-            }
-            e = (lt.end + tot) - shift;
-        }
-        m = m_new - shift;
-        i = i_new - shift;
-        d = d_new - shift;
-        mb = NEG - shift;
-        ib = ib_new - shift;
-        kahan(off, off_c, shift);
-        node = v;
+        mapped_step(emission, init_logp, parent_idx, parent_logt, lt, v,
+                    codes[(size_t)b * L + p], p == len - 1, n4, D, G, sm, node, m, i, d,
+                    rc);
         if (own) {
             const size_t o = ((size_t)p * B + b) * A + a;
             o_nodes[o] = node;
@@ -347,7 +107,7 @@ __global__ void __launch_bounds__(NT, 1) refine_forward(
             o_i[o] = i;
             o_d[o] = d;
         }
-        if (a == 0) o_off[(size_t)p * B + b] = off;
+        if (a == 0) o_off[(size_t)p * B + b] = rc.off;
     }
     // padding positions store the carry
     for (int p = len; p < L; ++p) {
@@ -358,9 +118,9 @@ __global__ void __launch_bounds__(NT, 1) refine_forward(
             o_i[o] = i;
             o_d[o] = d;
         }
-        if (a == 0) o_off[(size_t)p * B + b] = off;
+        if (a == 0) o_off[(size_t)p * B + b] = rc.off;
     }
-    if (a == 0) o_e[b] = e + off;
+    if (a == 0) o_e[b] = rc.e + rc.off;
 }
 
 // ---------------------------------------------------------------- R2 ------
@@ -583,8 +343,6 @@ __global__ void __launch_bounds__(NT, 1) refine_decode(
             tops_nodes[o] = -1;
         }
 }
-
-int threads_for(int slots) { return slots <= 32 ? 32 : ((slots + 31) / 32) * 32; }
 
 template <typename T>
 int launch_forward(const void* emission, const void* init_logp, const void* parent_idx,

@@ -110,10 +110,16 @@ def min_cost_flow_convex_native(net: DiGraph) -> Optional[List[int]]:
 
 
 def solve(net: DiGraph) -> Optional[List[int]]:
-    """Native if possible, else the Python reference solver."""
+    """Native if possible, else the Python reference solver.  LAST_RC is
+    this solve's code either way: the Python solver's is 0, or 1 where it
+    finds no flow (it has no time budget), never a code left by an earlier
+    native solve."""
+    global LAST_RC
     try:
         return min_cost_flow_convex_native(net)
     except RuntimeError:
         from .mincost import min_cost_flow_convex
 
-        return min_cost_flow_convex(net)
+        out = min_cost_flow_convex(net)
+        LAST_RC = 0 if out is not None else 1
+        return out

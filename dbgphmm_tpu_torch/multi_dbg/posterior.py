@@ -206,6 +206,22 @@ def _pad_hint_nodes(hint: Mappings, L: int, cap: int) -> np.ndarray:
     return out
 
 
+def sparse_adaptive_args(n: int, D: int, L: int, n_active: int,
+                         dtype: torch.dtype) -> dict:
+    """The sparse-adaptive forward's arguments for a graph of ``n`` full
+    edges (degree ``D``) and reads padded to ``L``: up to
+    DENSE_COMPUTE_MAX_NODES the dense compute (n_warmup = L) with ~256
+    stored cells (n_top * (D + 1)); beyond, the evolving frontier, its
+    stored tables trimmed to the decode's width, in bfloat16 when
+    computing in float32."""
+    if n <= DENSE_COMPUTE_MAX_NODES:
+        return dict(n_top=max(40, 256 // (D + 1)), n_warmup=L, stored_k=None,
+                    store_bf16=False)
+    return dict(n_top=max(ADAPTIVE_FRONTIER_TOP, -(-n_active // 2)),
+                n_warmup=16, stored_k=max(n_active, ADAPTIVE_FRONTIER_TOP),
+                store_bf16=dtype == torch.float32)
+
+
 def generate_mappings(
     dbg: MultiDbg,
     params: PHMMParams,
@@ -328,21 +344,10 @@ def generate_mappings(
                 max_ratio=max_ratio,
             )
             return logp, mn_d, ml_d
-        stored_k, store_bf16 = None, False
-        if n <= DENSE_COMPUTE_MAX_NODES:
-            # dense compute, ~256 stored cells (n_top * (D + 1))
-            D = int(dm.parent_idx.shape[1])
-            n_top, n_warmup = max(40, 256 // (D + 1)), int(codes_d.shape[1])
-        else:
-            # the frontier: stored tables trimmed to the decode's width,
-            # in bfloat16 when computing in float32
-            n_top, n_warmup = max(ADAPTIVE_FRONTIER_TOP, -(-n_active // 2)), 16
-            stored_k = max(n_active, ADAPTIVE_FRONTIER_TOP)
-            store_bf16 = dtype == torch.float32
         return mappings_sparse_adaptive(
-            dm, codes_d, lens_d, n_top=n_top, n_active=n_active,
-            max_ratio=max_ratio, n_warmup=n_warmup, stored_k=stored_k,
-            store_bf16=store_bf16,
+            dm, codes_d, lens_d, n_active=n_active, max_ratio=max_ratio,
+            **sparse_adaptive_args(n, int(dm.parent_idx.shape[1]),
+                                   int(codes_d.shape[1]), n_active, dtype),
         )
 
     read_logps, mn, ml = _decode_sharded(

@@ -15,6 +15,11 @@ ctypes; nothing is built when a module is imported.
 * ``librefine_<hash>.so`` — the refine's two scans R1 and R2,
   ``csrc/refine.cu`` (``ops/adaptive.py``), built the same way; it has its
   own C entries (``dbg_refine_forward``, ``dbg_refine_decode``).
+* ``libadaptive_<hash>.so`` — the sparse-adaptive forward's two scans A1
+  and A2, ``csrc/adaptive.cu`` (``ops/adaptive.py``; C entries
+  ``dbg_adaptive_dense``, ``dbg_adaptive_frontier``).  It and
+  ``refine.cu`` include ``csrc/refine_common.cuh`` (R1's step and the
+  arithmetic the four scans share).
 * ``lib<name>_<hash>.so`` — the host kernels in ``csrc/host/``, compiled
   with ``g++``: ``positions.cpp`` (slot positions, ``ops/sparse.py``),
   ``flow.cpp`` (the min-cost flow solver, ``flow/native.py``),
@@ -45,6 +50,8 @@ BUILD_DIR = PKG / "build"
 SCORER_SRC = PKG / "csrc" / "mapped_scorer.cu"
 LINEAR_SRC = PKG / "csrc" / "mapped_scorer_linear.cu"
 REFINE_SRC = PKG / "csrc" / "refine.cu"
+ADAPTIVE_SRC = PKG / "csrc" / "adaptive.cu"
+REFINE_HDR = PKG / "csrc" / "refine_common.cuh"
 COMMON_HDR = PKG / "csrc" / "mapped_common.cuh"
 HOST_DIR = PKG / "csrc" / "host"
 HOST_LIBS = ("positions", "flow", "seedchain", "kshortest")
@@ -160,8 +167,21 @@ def refine_lib() -> ctypes.CDLL:
             "dbg_refine_forward": (i32, [i32] + [vp] * 14 + [i32] * 5 + [vp]),
             "dbg_refine_decode": (i32, [i32] * 2 + [vp] * 14 + [i32] * 7
                                   + [ctypes.c_double, vp]),
-        }, deps=())
+        }, deps=(REFINE_HDR,))
     return _LIBS["refine"]
+
+
+def adaptive_lib() -> ctypes.CDLL:
+    """The compiled sparse-adaptive forward scans A1 and A2 (built on first
+    call)."""
+    if "adaptive" not in _LIBS:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        _LIBS["adaptive"] = _cuda_lib(ADAPTIVE_SRC, "libadaptive", {
+            "dbg_adaptive_dense": (i32, [i32] * 2 + [vp] * 19 + [i32] * 8 + [vp]),
+            "dbg_adaptive_frontier": (i32, [i32] * 2 + [vp] * 20 + [i32] * 9
+                                      + [ctypes.c_double, vp]),
+        }, deps=(REFINE_HDR,))
+    return _LIBS["adaptive"]
 
 
 def host_so(name: str) -> Path:
@@ -191,7 +211,8 @@ def positions_lib() -> ctypes.CDLL:
 
 def build_all() -> None:
     """Build every native library at once, one compiler process each."""
-    jobs = [mapped_scorer_lib, mapped_scorer_linear_lib, refine_lib]
+    jobs = [mapped_scorer_lib, mapped_scorer_linear_lib, refine_lib,
+            adaptive_lib]
     jobs += [lambda n=name: host_so(n) for name in HOST_LIBS]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         for f in [pool.submit(fn) for fn in jobs]:

@@ -20,19 +20,25 @@ tables are ``[L, B, K]``.
 * ``mappings_refine`` (ref: hint.rs:206-216 run_with_mapping): the same
   backward-by-forward decode over a hint's per-position active sets.
 
-The two scans of the refine are CUDA kernels (``csrc/refine.cu``), each
-with its plain PyTorch version beside it:
+The device scans are CUDA kernels, each with its plain PyTorch version
+beside it:
 
-    R1 forward_mapped_tables  the scan at dbgphmm_tpu/ops/adaptive.py:631
-       (forward_mapped_tables_reference)
-    R2 decode_from_forward    the scan at dbgphmm_tpu/ops/adaptive.py:533
-       (decode_from_forward_reference)
+    R1 forward_mapped_tables    the scan at dbgphmm_tpu/ops/adaptive.py:631
+       (forward_mapped_tables_reference; csrc/refine.cu)
+    R2 decode_from_forward      the scan at dbgphmm_tpu/ops/adaptive.py:533
+       (decode_from_forward_reference; csrc/refine.cu)
+    A1 adaptive_dense           the dense warm-up scan at
+                                dbgphmm_tpu/ops/adaptive.py:349
+    A2 adaptive_frontier        the evolving-frontier scan at
+                                dbgphmm_tpu/ops/adaptive.py:370
+       (A1 and A2: forward_sparse_adaptive, plain version
+       forward_sparse_adaptive_reference; csrc/adaptive.cu)
 
 For a model on the CPU a wrapper runs its plain version; on a CUDA device
-it checks its inputs and launches its kernel on the current stream, or
+it checks its inputs and launches its kernels on the current stream, or
 raises (``.launches`` counts the launches, ``.calls`` the plain runs).
-``mappings_refine`` runs R1 then R2; ``mappings_sparse_adaptive`` runs the
-plain sparse-adaptive forward then R2.
+``mappings_refine`` runs R1 then R2; ``mappings_sparse_adaptive`` runs A1
+(and A2 where the warm-up is shorter than the reads) then R2.
 
 The JAX package reads the frontier's children through a one-hot matrix
 product (``_onehot_slot_dot``, the TPU's way around slot gathers, with a
@@ -203,12 +209,13 @@ def _dense_to_sparse(fstate, A: int) -> SState:
 
 
 @torch.no_grad()
-def forward_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
-                            lens: torch.Tensor, n_top: int = 40,
-                            n_warmup: int = 16, max_ratio: float = None,
-                            stored_k: Optional[int] = None,
-                            store_bf16: bool = False) -> AdaptiveTables:
-    """Sparse-adaptive forward storing per-step active tables.
+def forward_sparse_adaptive_reference(
+        dm: DeviceModel, codes: torch.Tensor, lens: torch.Tensor,
+        n_top: int = 40, n_warmup: int = 16, max_ratio: float = None,
+        stored_k: Optional[int] = None,
+        store_bf16: bool = False) -> AdaptiveTables:
+    """Plain PyTorch version of A1 and A2: the sparse-adaptive forward
+    storing per-step active tables.
 
     The first ``n_warmup`` positions run dense (exact) and store the table
     compacted to its top A = min(n_top * (D + 1), n) cells (ref:
@@ -218,6 +225,7 @@ def forward_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
     ``stored_k`` cells by max(m, i, d) and, with ``store_bf16``, in
     bfloat16 (they only select the decode's cells; the read
     log-likelihood ``e`` comes from the carry)."""
+    forward_sparse_adaptive_reference.calls += 1
     B, L = codes.shape
     n = dm.init_logp.shape[0]
     A = min(n_top * (dm.child_idx.shape[1] + 1), n)
@@ -259,6 +267,9 @@ def forward_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
         attrs = torch.where(valid[:, None, None], attrs1, attrs)
         emit(p, st)
     return AdaptiveTables(nodes=ns, m=ms, i=is_, d=ds, off=offs, e=st.e + st.off)
+
+
+forward_sparse_adaptive_reference.calls = 0
 
 
 def forward_mapped_tables_reference(dm: DeviceModel, codes: torch.Tensor,
@@ -451,6 +462,7 @@ def _decode_finish(dm: DeviceModel, lens: torch.Tensor, f: AdaptiveTables,
 
 REFINE_MAX_WIDTH = 256  # R1: hint slots, one per thread of a block
 DECODE_MAX_CELLS = 512  # R2: stored cells, two per thread above 256
+ADAPTIVE_MAX_CELLS = 512  # A1 / A2: carried cells A (A2: one per thread)
 REFINE_MAX_DEGREE = 5  # parent / child columns (the padded model's degree)
 REFINE_MAX_GAPS = 32  # deletion-closure rounds (n_max_gaps)
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -501,10 +513,11 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(wrapper, entry: str, device: torch.device, args: list) -> None:
-    """One launch of ``entry`` on the current stream of ``device``, counted
-    on ``wrapper``; raises with the CUDA error string if it is refused."""
-    lib = _build.refine_lib()
+def _launch(wrapper, lib: ctypes.CDLL, entry: str, device: torch.device,
+            args: list) -> None:
+    """One launch of ``entry`` of ``lib`` on the current stream of
+    ``device``, counted on ``wrapper``; raises with the CUDA error string if
+    it is refused."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
@@ -544,7 +557,8 @@ def forward_mapped_tables(dm: DeviceModel, codes: torch.Tensor,
         e=torch.empty((B,), dtype=dt, device=dev))
     if B:
         lt = torch.stack(list(dm.lt))
-        _launch(forward_mapped_tables, "dbg_refine_forward", dev,
+        _launch(forward_mapped_tables, _build.refine_lib(),
+                "dbg_refine_forward", dev,
                 [_DTYPE_CODE[dt]]
                 + [_ptr(t) for t in (dm.emission, dm.init_logp, dm.parent_idx,
                                      dm.parent_logt, lt, codes, lens,
@@ -607,7 +621,8 @@ def decode_tops(dm: DeviceModel, codes: torch.Tensor, lens: torch.Tensor,
     if B:
         lt = torch.stack(list(dm.lt))
         ratio = 0.0 if max_ratio is None else float(max_ratio)
-        _launch(decode_from_forward, "dbg_refine_decode", dev,
+        _launch(decode_from_forward, _build.refine_lib(),
+                "dbg_refine_decode", dev,
                 [_DTYPE_CODE[dm.dtype], _DTYPE_CODE[f.m.dtype]]
                 + [_ptr(t) for t in (dm.emission, dm.child_idx, dm.child_logt,
                                      lt, codes, lens, *f, tops_logp,
@@ -617,13 +632,116 @@ def decode_tops(dm: DeviceModel, codes: torch.Tensor, lens: torch.Tensor,
     return tops_logp, tops_nodes
 
 
+def forward_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
+                            lens: torch.Tensor, n_top: int = 40,
+                            n_warmup: int = 16, max_ratio: float = None,
+                            stored_k: Optional[int] = None,
+                            store_bf16: bool = False) -> AdaptiveTables:
+    """A1 then A2: the sparse-adaptive forward storing per-step active
+    tables (see :func:`forward_sparse_adaptive_reference`): nodes, m, i, d
+    [L, B, K] (K = min(stored_k, A) cells of A = min(n_top * (D + 1), n);
+    m / i / d in bfloat16 with ``store_bf16``), off [L, B], e [B] (the read
+    log-likelihood, offset applied).
+
+    A model on the CPU runs :func:`forward_sparse_adaptive_reference`.  On
+    a CUDA device the model is float32 or float64 (its degree at most
+    REFINE_MAX_DEGREE, n_max_gaps at most REFINE_MAX_GAPS), A is at most
+    ADAPTIVE_MAX_CELLS, codes [B, L] and lens [B] are contiguous int32 on
+    its device; :func:`adaptive_dense` (A1) runs positions [0, W) of
+    W = min(n_warmup, L) and, where W < L, :func:`adaptive_frontier` (A2)
+    the rest, on the current stream."""
+    if dm.device.type == "cpu":
+        return forward_sparse_adaptive_reference(
+            dm, codes, lens, n_top=n_top, n_warmup=n_warmup,
+            max_ratio=max_ratio, stored_k=stored_k, store_bf16=store_bf16)
+    if n_top < 1 or n_warmup < 0 or (stored_k is not None and stored_k < 1):
+        raise ValueError(f"forward_sparse_adaptive: n_top={n_top}, n_warmup="
+                         f"{n_warmup}, stored_k={stored_k}")
+    i32 = (torch.int32,)
+    B, L = codes.shape if codes.dim() == 2 else (-1, -1)
+    n, D = dm.parent_idx.shape
+    A = min(n_top * (D + 1), n)
+    _check("forward_sparse_adaptive", dm,
+           dict(codes=(codes, i32, (B, L)), lens=(lens, i32, (B,))), A,
+           ADAPTIVE_MAX_CELLS)
+    K = A if stored_k is None else min(stored_k, A)
+    W = min(n_warmup, L)
+    dt, dev = dm.dtype, dm.device
+    sdt = torch.bfloat16 if store_bf16 else dt
+    tab = lambda: torch.empty((L, B, K), dtype=sdt, device=dev)
+    out = AdaptiveTables(
+        nodes=torch.empty((L, B, K), dtype=torch.int32, device=dev),
+        m=tab(), i=tab(), d=tab(),
+        off=torch.empty((L, B), dtype=dt, device=dev),
+        e=torch.empty((B,), dtype=dt, device=dev))
+    if B:
+        carry = (torch.empty((B, A), dtype=torch.int32, device=dev),
+                 *(torch.empty((B, A), dtype=dt, device=dev) for _ in range(3)),
+                 torch.empty((B, 5), dtype=dt, device=dev))
+        lt = torch.stack(list(dm.lt))
+        adaptive_dense(dm, lt, codes, lens, out, carry, A, K, W)
+        if W < L:
+            adaptive_frontier(dm, lt, codes, lens, out, carry, A, K, W, n_top,
+                              max_ratio)
+    return out
+
+
+forward_sparse_adaptive.launches = 0
+
+
+def adaptive_dense(dm: DeviceModel, lt: torch.Tensor, codes: torch.Tensor,
+                   lens: torch.Tensor, out: AdaptiveTables, carry: tuple,
+                   A: int, K: int, W: int) -> None:
+    """A1's launch alone, on inputs :func:`forward_sparse_adaptive` has
+    checked: rows [0, W) of ``out``, its e, and the compacted carry
+    (nodes, m, i, d [B, A], [B, 5] scalars) for A2.  Its scratch holds the
+    dense state, 7 n elements of the model's type per read (csrc/adaptive.cu:
+    A1_ARRAYS)."""
+    L, B, _K = out.nodes.shape
+    n = int(dm.init_logp.shape[0])
+    scratch = torch.empty((B, 7, n), dtype=dm.dtype, device=dm.device)
+    _launch(adaptive_dense, _build.adaptive_lib(), "dbg_adaptive_dense",
+            dm.device,
+            [_DTYPE_CODE[dm.dtype], _DTYPE_CODE[out.m.dtype]]
+            + [_ptr(t) for t in (dm.emission, dm.init_logp, dm.parent_idx,
+                                 dm.parent_logt, lt, codes, lens, scratch,
+                                 *out, *carry)]
+            + [B, L, n, A, K, W, int(dm.parent_idx.shape[1]), dm.n_max_gaps])
+    forward_sparse_adaptive.launches += 1
+
+
+adaptive_dense.launches = 0
+
+
+def adaptive_frontier(dm: DeviceModel, lt: torch.Tensor, codes: torch.Tensor,
+                      lens: torch.Tensor, out: AdaptiveTables, carry: tuple,
+                      A: int, K: int, W: int, n_top: int, max_ratio) -> None:
+    """A2's launch alone, after :func:`adaptive_dense`: rows [W, L) of
+    ``out`` and its e, from A1's carry."""
+    L, B, _K = out.nodes.shape
+    ratio = 0.0 if max_ratio is None else float(max_ratio)
+    _launch(adaptive_frontier, _build.adaptive_lib(),
+            "dbg_adaptive_frontier", dm.device,
+            [_DTYPE_CODE[dm.dtype], _DTYPE_CODE[out.m.dtype]]
+            + [_ptr(t) for t in (dm.emission, dm.init_logp, dm.parent_idx,
+                                 dm.parent_logt, dm.child_idx, dm.child_logt,
+                                 lt, codes, lens, *carry, *out)]
+            + [B, L, A, K, W, int(dm.parent_idx.shape[1]), dm.n_max_gaps,
+               n_top, int(max_ratio is not None), ctypes.c_double(ratio)])
+    forward_sparse_adaptive.launches += 1
+
+
+adaptive_frontier.launches = 0
+
+
 def mappings_sparse_adaptive(dm: DeviceModel, codes: torch.Tensor,
                              lens: torch.Tensor, n_top: int = 40,
                              n_active: int = 40, max_ratio: float = None,
                              n_warmup: int = 16, stored_k: Optional[int] = None,
                              store_bf16: bool = False):
     """Sparse-adaptive forward + backward-by-forward decode (ref: freq.rs:60
-    run_sparse_adaptive + hint.rs:124-142); the decode is R2.
+    run_sparse_adaptive + hint.rs:124-142); the forward is A1 / A2, the
+    decode R2.
 
     Returns (logp [B], map_nodes [B, L, k], map_logp [B, L, k]) on dm's
     device, k = min(n_active, stored cells)."""

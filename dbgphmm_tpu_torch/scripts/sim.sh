@@ -17,7 +17,9 @@
 #
 # CLI args are passed through to every attempt (e.g. --device cpu).
 # DBGPHMM_STALL_S (default 1200): seconds of log silence before the
-# supervisor dumps the run's stacks and restarts it.
+# supervisor dumps the run's stacks and restarts it;
+# DBGPHMM_STALL_DUMP_S (default 60): seconds it then waits for the dump
+# before SIGTERM.
 
 set -u
 REPO="$(cd "$(dirname "$0")/../.." && pwd)"
@@ -90,13 +92,15 @@ supervise() {
   # exits non-zero is restarted from the deepest checkpoint, worked out
   # again after each attempt; a run whose log has been silent for
   # DBGPHMM_STALL_S seconds gets SIGUSR1 (its CLI dumps every thread's
-  # stack into the log) and is then killed and restarted.  Gives up after
-  # 12 restarts.
+  # stack into the log), DBGPHMM_STALL_DUMP_S seconds to finish the dump,
+  # then SIGTERM (SIGKILL after 10 s more), and is restarted.  Gives up after
+  # 12 restarts after a crash or 12 after a stall, each counted on its own.
   local PRE=$1 DRAFT=$2; shift 2
-  local LOG="$PRE.log" attempt=0 stall=${DBGPHMM_STALL_S:-1200}
+  local LOG="$PRE.log" attempt=0 stalls=0 stall=${DBGPHMM_STALL_S:-1200}
+  local dump_wait=${DBGPHMM_STALL_DUMP_S:-60}
   mkdir -p "$(dirname "$PRE")"
   while :; do
-    local ARGS=( "$@" -o "$PRE" ) LASTK FROM=draft
+    local ARGS=( "$@" -o "$PRE" ) LASTK FROM=draft stalled=0
     LASTK=$(deepest_k "$PRE")
     if [ -n "$LASTK" ]; then
       ARGS+=( -d "$PRE.k$LASTK.dbg" --map "$PRE.k$LASTK.map.mpz" )
@@ -111,17 +115,35 @@ supervise() {
       sleep 2
       local age=$(( $(date +%s) - $(stat -c %Y "$LOG" 2>/dev/null || date +%s) ))
       if [ "$age" -gt "$stall" ]; then
-        echo "# supervise: no log progress for ${age}s; stack-dumping + restarting pid $wpid" >> "$LOG"
+        echo "# supervise: no log progress for ${age}s; stack-dumping pid $wpid (${dump_wait}s) then restarting" >> "$LOG"
+        stalled=1
         kill -USR1 "$wpid" 2>/dev/null
-        sleep 5
+        local waited=0
+        while [ "$waited" -lt "$dump_wait" ] && kill -0 "$wpid" 2>/dev/null; do
+          sleep 1
+          waited=$((waited+1))
+        done
         kill "$wpid" 2>/dev/null
-        sleep 10
+        waited=0
+        while [ "$waited" -lt 10 ] && kill -0 "$wpid" 2>/dev/null; do
+          sleep 1
+          waited=$((waited+1))
+        done
         kill -9 "$wpid" 2>/dev/null
       fi
     done
     wait "$wpid"
     local rc=$?
     [ "$rc" -eq 0 ] && return 0
+    if [ "$stalled" -eq 1 ]; then
+      stalls=$((stalls+1))
+      if [ "$stalls" -gt 12 ]; then
+        echo "# supervise: giving up after $stalls stalls" | tee -a "$LOG"
+        return 1
+      fi
+      echo "# supervise: rc=$rc stall=$stalls restarting from the deepest checkpoint" | tee -a "$LOG"
+      continue
+    fi
     attempt=$((attempt+1))
     if [ "$attempt" -gt 12 ]; then
       echo "# supervise: giving up after $attempt attempts" | tee -a "$LOG"

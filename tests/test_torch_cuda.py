@@ -448,3 +448,73 @@ def test_refine_kernels_refuse_bad_inputs(cuda):
         AD.decode_from_forward(dm, codes, lens, big, 40, None)
     assert AD.forward_mapped_tables.launches == n1
     assert AD.decode_from_forward.launches == n2
+
+
+# A1 / A2 cases: (n, D, n_top, forward_sparse_adaptive's other arguments);
+# n_warmup None = the read length (the dense-compute regime, A1 alone)
+ADAPTIVE_CASES = {
+    "dense_a_below_n": (600, 3, 40, dict(n_warmup=None)),
+    "dense_a_is_n": (100, 3, 40, dict(n_warmup=None, max_ratio=10.0)),
+    "dense_d4": (300, 4, 30, dict(n_warmup=None)),
+    "frontier_ratio": (600, 3, 40, dict(n_warmup=4, max_ratio=10.0)),
+    "frontier_stored_bf16": (600, 3, 100, dict(n_warmup=4, max_ratio=10.0,
+                                               stored_k=64, store_bf16=True)),
+    "frontier_d5_no_gaps": (400, 5, 20, dict(n_warmup=3)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(ADAPTIVE_CASES))
+def test_adaptive_kernels_match_plain(cuda, case, dtype):
+    """A1 (and A2 past the warm-up) against forward_sparse_adaptive_reference
+    on the card, reads of unequal lengths (one empty): the stored nodes and
+    the -inf patterns equal; m / i / d and off bit for bit in float32
+    (bfloat16 rows too) and to 1e-9 relative in float64, e to 1e-5 (float32:
+    a log-sum-exp over n summed in another order) or 1e-9; one launch of
+    each kernel and no plain run by the wrapper."""
+    n, D, n_top, kw = ADAPTIVE_CASES[case]
+    gaps = 0 if case == "frontier_d5_no_gaps" else 3
+    dm, codes, lens, _hint = random_refine_case(n, D, 6, 60, 8, dtype,
+                                                 seed=n + D, device=cuda,
+                                                 n_max_gaps=gaps)
+    lens[1] = 0
+    kw = dict(kw, n_top=n_top)
+    if kw["n_warmup"] is None:
+        kw["n_warmup"] = int(codes.shape[1])
+    frontier = kw["n_warmup"] < codes.shape[1]
+    n1, n2 = AD.adaptive_dense.launches, AD.adaptive_frontier.launches
+    calls = AD.forward_sparse_adaptive_reference.calls
+    got = AD.forward_sparse_adaptive(dm, codes, lens, **kw)
+    assert AD.forward_sparse_adaptive_reference.calls == calls
+    assert (AD.adaptive_dense.launches - n1,
+            AD.adaptive_frontier.launches - n2) == (1, int(frontier))
+    ref = AD.forward_sparse_adaptive_reference(dm, codes, lens, **kw)
+    assert torch.equal(got.nodes, ref.nodes)
+    tol = REFINE_TOL[dtype]
+    for name in ("m", "i", "d", "off", "e"):
+        assert rel_err(getattr(got, name), getattr(ref, name)) <= tol, name
+        if dtype == torch.float32 and name != "e":
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_adaptive_kernels_refuse_bad_inputs(cuda):
+    """More than 512 carried cells, int64 codes, a float16 model, a degree
+    above 5: ValueError, no launch."""
+    import dataclasses
+
+    dm, codes, lens, _hint = random_refine_case(900, 3, 2, 20, 8,
+                                                 torch.float32, seed=1,
+                                                 device=cuda)
+    n1, n2 = AD.adaptive_dense.launches, AD.adaptive_frontier.launches
+    with pytest.raises(ValueError, match="width 520"):
+        AD.forward_sparse_adaptive(dm, codes, lens, n_top=130)
+    with pytest.raises(ValueError, match="int64"):
+        AD.forward_sparse_adaptive(dm, codes.long(), lens, n_top=40)
+    half = dataclasses.replace(dm, init_logp=dm.init_logp.half())
+    with pytest.raises(ValueError, match="float16"):
+        AD.forward_sparse_adaptive(half, codes, lens, n_top=40)
+    wide, _c, _l, _h = random_refine_case(900, 6, 2, 20, 8, torch.float32,
+                                          seed=1, device=cuda)
+    with pytest.raises(ValueError, match="degree"):
+        AD.forward_sparse_adaptive(wide, codes, lens, n_top=40)
+    assert (AD.adaptive_dense.launches, AD.adaptive_frontier.launches) == (n1, n2)

@@ -101,3 +101,51 @@ def test_sigusr1_dumps_the_stacks_and_the_run_goes_on(toy):
     assert proc.returncode == 0, err[-3000:]
     assert "Current thread" in err and 'File "' in err, err[-3000:]
     assert "# assembled=2 truth=2 exact=True" in out
+
+
+FAKE_RUN = """#!/bin/bash
+# a run that logs once and then hangs; its stack dump (SIGUSR1) takes 2 s
+echo "# fake started"
+trap 'echo "# usr1 $(date +%s.%N)"; sleep 2; echo "# dump done $(date +%s.%N)"' USR1
+trap 'echo "# term $(date +%s.%N)"; exit 143' TERM
+while :; do sleep 0.2; done
+"""
+
+
+def test_supervisor_counts_stalls_apart_and_waits_for_the_dump(tmp_path):
+    """A run whose log goes silent: the supervisor sends SIGUSR1, waits
+    DBGPHMM_STALL_DUMP_S seconds (here 4, longer than the 2 s dump) before
+    SIGTERM, and restarts it; the stall restarts are counted on their own
+    (stall=1, stall=2) and not as crash restarts (every attempt is
+    attempt=0).  The supervisor is stopped after its second stall."""
+    fake = tmp_path / "fake_python"
+    fake.write_text(FAKE_RUN)
+    fake.chmod(0o755)
+    pre = tmp_path / "run" / "out"
+    log = tmp_path / "run" / "out.log"
+    env = dict(_env(), PYTHON=str(fake), DBGPHMM_STALL_S="1",
+               DBGPHMM_STALL_DUMP_S="4")
+    proc = subprocess.Popen(["bash", str(SIM), "supervise", str(pre),
+                             "sim.dbg", "sim-infer"], cwd=tmp_path, env=env,
+                            text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        _wait_for(lambda: log.exists() and "stall=2 restarting" in
+                  log.read_text(), 90, "the second stall restart")
+    finally:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate(timeout=30)
+    text = log.read_text()
+    assert "# supervise: rc=143 stall=1 restarting" in out, text
+    assert "# supervise: rc=143 stall=2 restarting" in out, text
+    assert "giving up" not in text
+    starts = re.findall(r"# supervise: attempt=(\d+) pid=\d+ from=draft", text)
+    assert len(starts) >= 2 and set(starts) == {"0"}, text
+    assert "attempt=1" not in text
+    runs = text.split("# supervise: rc=143 stall=2")[0].split("# fake started")
+    assert len(runs) == 3, text
+    for run in runs[1:]:
+        usr1 = float(re.search(r"# usr1 ([\d.]+)", run).group(1))
+        done = float(re.search(r"# dump done ([\d.]+)", run).group(1))
+        term = float(re.search(r"# term ([\d.]+)", run).group(1))
+        assert usr1 < done < term and term - usr1 >= 3.5, run
