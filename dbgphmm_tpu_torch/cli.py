@@ -41,8 +41,18 @@ stderr and carry on (``faulthandler``), so that a supervisor
 Mappings are decoded by the graph's size (``multi_dbg.posterior.
 generate_mappings``): dense up to 4,000 full edges, sparse-adaptive up to
 32,768, seeded beyond.  Each k-stage of ``infer`` / ``sim-infer`` prints
-one line ``# stage {json}`` with its time split (seeding, from-scratch
-decode, refine, scorer setup, scoring, host) and scorings per second.
+one line ``# stage {json}`` (``tracing.StageTimes.as_dict``) with its time
+split in seconds -- ``seed_s``, ``decode_s``, ``refine_s``, ``setup_s``,
+``score_s``, ``host_s`` (the rest of ``wall_s``) -- and scorings per
+second; the split below them, from the program's spans: seeding's
+``seed_index_s``, ``seed_hits_s``, ``seed_chain_s``, ``seed_rows_s``; the
+mapping's ``map_prep_s``, ``map_launch_s``, ``map_fetch_s`` (the copy to
+the host, waiting for the device included), ``map_gate_s``; the climb's
+``neighbors_s``, ``prior_s``, ``move_s``; ``extend_s``, ``reinit_s``; and
+``untraced_s``, the wall time no named span covers.  Its counters:
+``reads``, ``reads_unseeded``, ``seed_cover``, ``reads_gated``,
+``fetch_bytes``, ``kept_bytes``, ``climb_iters``, ``candidates``,
+``candidates_scored``, ``edges_purged``, ``n_scorings``, ``n_rescued``.
 """
 
 from __future__ import annotations

@@ -52,6 +52,7 @@ from ..parallel.sharding import (
 from ..phmm.params import PHMMParams
 from ..phmm.template import make_template
 from ..prob import NEG_INF, ladd, normal_bin_logp
+from ..tracing import StageTimes, collecting, count, is_open, outermost, span
 from . import MultiDbg
 from .draft import min_squared_error_copy_nums_from_freqs
 from .neighbors import (
@@ -104,33 +105,6 @@ def _dense_read_chunk(n_nodes: int, L: int, dtype, mesh
                    // max(per_read, 1)) for d in mesh.owned_devices()),
               default=sys.maxsize)  # a rank that holds no shard limits nothing
     return agree_min(fit, mesh) * mesh.size, per_read
-
-
-# -- per-stage timing ---------------------------------------------------------
-
-
-@dataclass
-class StageTimes:
-    """Wall-clock split of one k-stage (host clock; device work is
-    synchronised where it is timed)."""
-
-    k: int
-    seed_s: float = 0.0  # seed_mappings_arrays (host)
-    decode_s: float = 0.0  # from-scratch decodes (device) incl. transfers
-    refine_s: float = 0.0  # mappings_refine (device) incl. transfers
-    setup_s: float = 0.0  # template, positions, scorer streams
-    score_s: float = 0.0  # read likelihoods of candidates (device)
-    n_scorings: int = 0  # candidates x reads scored
-    n_rescued: int = 0  # linear-space candidates rescored in log space
-    wall_s: float = 0.0
-
-    def as_dict(self) -> dict:
-        d = dict(self.__dict__)
-        d["host_s"] = self.wall_s - (self.seed_s + self.decode_s + self.refine_s
-                                     + self.setup_s + self.score_s)
-        d["scorings_per_s"] = (self.n_scorings / self.score_s
-                               if self.score_s > 0 else 0.0)
-        return d
 
 
 def _sync(device: torch.device, mesh=None) -> None:
@@ -264,152 +238,162 @@ def generate_mappings(
     the same mappings; a block of padding only is not decoded.  The read
     chunk of the dense decode holds per device (:func:`_dense_read_chunk`)."""
     device = torch.device(device)
-    mesh = local_mesh(device) if mesh is None else mesh
-    if dtype is None:
-        dtype = default_dtype(device)
-    if max_ratio == "default":
-        max_ratio = params.active_node_max_ratio
-    n = dbg.n_edges_full()
+    with collecting(times), outermost("map"):
+        mesh = local_mesh(device) if mesh is None else mesh
+        if dtype is None:
+            dtype = default_dtype(device)
+        if max_ratio == "default":
+            max_ratio = params.active_node_max_ratio
+        n = dbg.n_edges_full()
 
-    if hint is None and n > DENSE_COMPUTE_MAX_NODES and seeded_mapping_enabled():
-        # graph-exact seeding + the constrained refine; hint_regen=False
-        # because re-decoding a read from scratch would seed it again
-        t0 = time.perf_counter()
-        arrs = seed_mappings_arrays(dbg, reads, verbose=True)
-        if times is not None:
-            times.seed_s += time.perf_counter() - t0
-        seeds = Mappings(arrs, [np.zeros(a.shape) for a in arrs], None, None, -1)
-        return generate_mappings(
-            dbg, params, reads, device, n_active=n_active, dtype=dtype,
-            max_ratio=max_ratio, hint=seeds, hint_gate=hint_gate,
-            verbose=verbose, read_chunk=read_chunk, pad_to=pad_to,
-            hint_regen=False, times=times, mesh=mesh,
-        )
-
-    if read_chunk == MAPPING_READ_CHUNK and hint is None \
-            and n > DENSE_COMPUTE_MAX_NODES:
-        read_chunk = FRONTIER_READ_CHUNK  # compact bfloat16 tables
-    if read_chunk and hint is None and n <= DENSE_MAPPING_MAX_NODES:
-        L = pad_to or max(len(r) for r in reads)
-        fit, per_read = _dense_read_chunk(n, L, dtype, mesh)
-        if fit is not None:
-            read_chunk = min(read_chunk, fit)
-            b = min(read_chunk, len(reads))
-            print(f"[mappings] dense decode: read chunk {read_chunk} "
-                  f"({b} of {len(reads)} reads per pass), forward tables "
-                  f"{b * per_read / 1e9:.3f} GB per pass")
-    if read_chunk and len(reads) > read_chunk:
-        # a shared pad_to keeps every chunk at the same read length
-        reads_l = list(reads)
-        L_max = max(len(r) for r in reads_l)
-        parts = []
-        for c0 in range(0, len(reads_l), read_chunk):
-            sl = slice(c0, c0 + read_chunk)
-            sub_hint = None if hint is None else Mappings(
-                hint.nodes[sl], hint.logps[sl],
-                None if hint.read_logps is None else hint.read_logps[sl],
-                None if hint.anchor_logps is None else hint.anchor_logps[sl],
-                hint.stages_since_anchor,
+        if (hint is None and n > DENSE_COMPUTE_MAX_NODES
+                and seeded_mapping_enabled()):
+            # graph-exact seeding + the constrained refine; hint_regen=False
+            # because re-decoding a read from scratch would seed it again
+            arrs = seed_mappings_arrays(dbg, reads, verbose=True)
+            seeds = Mappings(arrs, [np.zeros(a.shape) for a in arrs], None,
+                             None, -1)
+            return generate_mappings(
+                dbg, params, reads, device, n_active=n_active, dtype=dtype,
+                max_ratio=max_ratio, hint=seeds, hint_gate=hint_gate,
+                verbose=verbose, read_chunk=read_chunk, pad_to=pad_to,
+                hint_regen=False, times=times, mesh=mesh,
             )
-            parts.append(generate_mappings(
-                dbg, params, reads_l[sl], device, n_active=n_active,
-                dtype=dtype, max_ratio=max_ratio, hint=sub_hint,
-                hint_gate=hint_gate, verbose=verbose, read_chunk=0,
-                pad_to=L_max, hint_regen=hint_regen, times=times, mesh=mesh,
-            ))
-        return Mappings(
-            [a for p in parts for a in p.nodes],
-            [a for p in parts for a in p.logps],
-            np.concatenate([p.read_logps for p in parts]),
-            np.concatenate([p.anchor_logps for p in parts]),
-            max(p.stages_since_anchor for p in parts),
-        )
 
-    t0 = time.perf_counter()
-    model = dbg.to_phmm(params, mode="non_zero")
-    codes, lens = pad_reads(list(reads), pad_to=pad_to)
-    n_reads = codes.shape[0]
-    hint_arr = (None if hint is None
-                else _pad_hint_nodes(hint, codes.shape[1], 2 * n_active))
-
-    def decode(dm, codes_d, lens_d, hint_d):
-        """(logp [B], map_nodes [B, L, k], map_logp) of one batch on dm's
-        device, by the branch the graph's size (or the hint) picks."""
-        if hint_d is not None:
-            return mappings_refine(dm, codes_d, lens_d, hint_d,
-                                   n_active=n_active, max_ratio=max_ratio)
-        if n <= DENSE_MAPPING_MAX_NODES:
-            logp, _freqs, mn_d, ml_d = node_freqs_and_mappings(
-                dm, codes_d, lens_d, renorm=True, n_active=n_active,
-                max_ratio=max_ratio,
+        if read_chunk == MAPPING_READ_CHUNK and hint is None \
+                and n > DENSE_COMPUTE_MAX_NODES:
+            read_chunk = FRONTIER_READ_CHUNK  # compact bfloat16 tables
+        if read_chunk and hint is None and n <= DENSE_MAPPING_MAX_NODES:
+            L = pad_to or max(len(r) for r in reads)
+            fit, per_read = _dense_read_chunk(n, L, dtype, mesh)
+            if fit is not None:
+                read_chunk = min(read_chunk, fit)
+                b = min(read_chunk, len(reads))
+                print(f"[mappings] dense decode: read chunk {read_chunk} "
+                      f"({b} of {len(reads)} reads per pass), forward "
+                      f"tables {b * per_read / 1e9:.3f} GB per pass")
+        if read_chunk and len(reads) > read_chunk:
+            # a shared pad_to keeps every chunk at the same read length
+            reads_l = list(reads)
+            L_max = max(len(r) for r in reads_l)
+            parts = []
+            for c0 in range(0, len(reads_l), read_chunk):
+                sl = slice(c0, c0 + read_chunk)
+                sub_hint = None if hint is None else Mappings(
+                    hint.nodes[sl], hint.logps[sl],
+                    None if hint.read_logps is None
+                    else hint.read_logps[sl],
+                    None if hint.anchor_logps is None
+                    else hint.anchor_logps[sl],
+                    hint.stages_since_anchor,
+                )
+                parts.append(generate_mappings(
+                    dbg, params, reads_l[sl], device, n_active=n_active,
+                    dtype=dtype, max_ratio=max_ratio, hint=sub_hint,
+                    hint_gate=hint_gate, verbose=verbose, read_chunk=0,
+                    pad_to=L_max, hint_regen=hint_regen, times=times,
+                    mesh=mesh,
+                ))
+            return Mappings(
+                [a for p in parts for a in p.nodes],
+                [a for p in parts for a in p.logps],
+                np.concatenate([p.read_logps for p in parts]),
+                np.concatenate([p.anchor_logps for p in parts]),
+                max(p.stages_since_anchor for p in parts),
             )
-            return logp, mn_d, ml_d
-        return mappings_sparse_adaptive(
-            dm, codes_d, lens_d, n_active=n_active, max_ratio=max_ratio,
-            **sparse_adaptive_args(n, int(dm.parent_idx.shape[1]),
-                                   int(codes_d.shape[1]), n_active, dtype),
-        )
 
-    read_logps, mn, ml = _decode_sharded(
-        decode, to_device(model, "cpu", dtype), codes, lens, hint_arr, mesh)
-    if times is not None:
-        dt = time.perf_counter() - t0
-        if hint is None:
-            times.decode_s += dt
-        else:
-            times.refine_s += dt
-    mn, ml = _trim_mapping_width(mn, ml)
-    nodes, logps = [], []
-    for i, L in enumerate(lens):
-        nodes.append(mn[i, :L].copy())
-        logps.append(ml[i, :L].copy())
+        part = "decode_s" if hint is None else "refine_s"
+        with span("map.prep", also=part):
+            model = dbg.to_phmm(params, mode="non_zero")
+            codes, lens = pad_reads(list(reads), pad_to=pad_to)
+            n_reads = codes.shape[0]
+            hint_arr = (None if hint is None else
+                        _pad_hint_nodes(hint, codes.shape[1], 2 * n_active))
+            dm = to_device(model, "cpu", dtype)
 
-    if hint is None:
-        # a from-scratch decode is the anchor of later hint stages
-        return Mappings(nodes, logps, read_logps, read_logps.copy(), 0)
+        def decode(dm, codes_d, lens_d, hint_d):
+            """(logp [B], map_nodes [B, L, k], map_logp) of one batch on
+            dm's device, by the branch the graph's size (or the hint)
+            picks."""
+            if hint_d is not None:
+                return mappings_refine(dm, codes_d, lens_d, hint_d,
+                                       n_active=n_active, max_ratio=max_ratio)
+            if n <= DENSE_MAPPING_MAX_NODES:
+                logp, _freqs, mn_d, ml_d = node_freqs_and_mappings(
+                    dm, codes_d, lens_d, renorm=True, n_active=n_active,
+                    max_ratio=max_ratio,
+                )
+                return logp, mn_d, ml_d
+            return mappings_sparse_adaptive(
+                dm, codes_d, lens_d, n_active=n_active, max_ratio=max_ratio,
+                **sparse_adaptive_args(n, int(dm.parent_idx.shape[1]),
+                                       int(codes_d.shape[1]), n_active,
+                                       dtype),
+            )
 
-    # acceptance gate: per-stage drop vs the previous constrained value and
-    # total drop vs the last from-scratch decode (anchor), plus an absolute
-    # floor of -5 nats/base
-    anchor = hint.anchor_logps
-    if anchor is None:
-        anchor = hint.read_logps
-    bad = ~np.isfinite(read_logps)
-    lens_np = np.asarray([n.shape[0] for n in nodes], dtype=np.float64)
-    with np.errstate(invalid="ignore"):
-        bad |= read_logps < -5.0 * np.maximum(lens_np, 1.0)
-    for ref_lp in (hint.read_logps, anchor):
-        if ref_lp is not None:
-            ref_lp = np.asarray(ref_lp, dtype=np.float64)
-            if ref_lp.shape == read_logps.shape:
-                with np.errstate(invalid="ignore"):
-                    bad |= read_logps < (ref_lp - hint_gate)
-    anchor_out = (np.asarray(anchor, dtype=np.float64).copy()
-                  if anchor is not None and np.shape(anchor) == read_logps.shape
-                  else read_logps.copy())
-    gate_rate = float(bad.mean())
-    if bad.any() and not hint_regen:
-        # seeded mappings: re-decoding from scratch would re-enter seeding;
-        # keep the constrained result and let the score carry the penalty
-        print(f"[mappings] {int(bad.sum())}/{n_reads} reads below the "
-              "likelihood floor under seeded sets (kept)")
-    if bad.any() and hint_regen:
-        idx = np.flatnonzero(bad)
-        print(f"[mappings] hint gate: regenerating {len(idx)}/"
-              f"{n_reads} reads from scratch")
-        fresh = generate_mappings(
-            dbg, params, [reads[int(i)] for i in idx], device,
-            n_active=n_active, dtype=dtype, max_ratio=max_ratio,
-            pad_to=codes.shape[1], times=times, mesh=mesh,
-        )
-        for j, i in enumerate(idx):
-            nodes[int(i)] = fresh.nodes[j]
-            logps[int(i)] = fresh.logps[j]
-            read_logps[int(i)] = fresh.read_logps[j]
-            anchor_out[int(i)] = fresh.read_logps[j]
+        read_logps, mn, ml = _decode_sharded(decode, dm, codes, lens,
+                                             hint_arr, mesh)
+        if not is_open("map.gate"):  # the gate's re-decodes map no new read
+            count("reads", n_reads)
+        with span("map.gate"):
+            mn, ml = _trim_mapping_width(mn, ml)
+            nodes, logps = [], []
+            for i, L in enumerate(lens):
+                nodes.append(mn[i, :L].copy())
+                logps.append(ml[i, :L].copy())
+            count("kept_bytes", read_logps.nbytes
+                  + sum(a.nbytes + b.nbytes for a, b in zip(nodes, logps)))
 
-    return Mappings(nodes, logps, read_logps, anchor_out,
-                    hint.stages_since_anchor + 1, gate_rate)
+            if hint is None:
+                # a from-scratch decode is the anchor of later hint stages
+                return Mappings(nodes, logps, read_logps, read_logps.copy(),
+                                0)
+
+            # acceptance gate: per-stage drop vs the previous constrained
+            # value and total drop vs the last from-scratch decode
+            # (anchor), plus an absolute floor of -5 nats/base
+            anchor = hint.anchor_logps
+            if anchor is None:
+                anchor = hint.read_logps
+            bad = ~np.isfinite(read_logps)
+            lens_np = np.asarray([n.shape[0] for n in nodes], dtype=np.float64)
+            with np.errstate(invalid="ignore"):
+                bad |= read_logps < -5.0 * np.maximum(lens_np, 1.0)
+            for ref_lp in (hint.read_logps, anchor):
+                if ref_lp is not None:
+                    ref_lp = np.asarray(ref_lp, dtype=np.float64)
+                    if ref_lp.shape == read_logps.shape:
+                        with np.errstate(invalid="ignore"):
+                            bad |= read_logps < (ref_lp - hint_gate)
+            anchor_out = (np.asarray(anchor, dtype=np.float64).copy()
+                          if anchor is not None
+                          and np.shape(anchor) == read_logps.shape
+                          else read_logps.copy())
+            gate_rate = float(bad.mean())
+            count("reads_gated", int(bad.sum()))
+            if bad.any() and not hint_regen:
+                # seeded mappings: re-decoding from scratch would re-enter
+                # seeding; keep the constrained result and let the score
+                # carry the penalty
+                print(f"[mappings] {int(bad.sum())}/{n_reads} reads below the "
+                      "likelihood floor under seeded sets (kept)")
+            if bad.any() and hint_regen:
+                idx = np.flatnonzero(bad)
+                print(f"[mappings] hint gate: regenerating {len(idx)}/"
+                      f"{n_reads} reads from scratch")
+                fresh = generate_mappings(
+                    dbg, params, [reads[int(i)] for i in idx], device,
+                    n_active=n_active, dtype=dtype, max_ratio=max_ratio,
+                    pad_to=codes.shape[1], times=times, mesh=mesh,
+                )
+                for j, i in enumerate(idx):
+                    nodes[int(i)] = fresh.nodes[j]
+                    logps[int(i)] = fresh.logps[j]
+                    read_logps[int(i)] = fresh.read_logps[j]
+                    anchor_out[int(i)] = fresh.read_logps[j]
+
+            return Mappings(nodes, logps, read_logps, anchor_out,
+                            hint.stages_since_anchor + 1, gate_rate)
 
 
 def _decode_sharded(decode, dm, codes: np.ndarray, lens: np.ndarray,
@@ -419,26 +403,33 @@ def _decode_sharded(decode, dm, codes: np.ndarray, lens: np.ndarray,
     to a multiple of the mesh size, as in the JAX package) and ``dm``
     replicated.  Each shard decodes its block's real reads on its device;
     every decode is issued before the first copy to the host."""
+    part = "decode_s" if hint_arr is None else "refine_s"
     n_shard, B = mesh.size, codes.shape[0]
     per = -(-B // n_shard)
-    put = lambda a, fill: put_read_sharded(mesh, _pad_reads_axis(a, n_shard, fill), 0)
-    codes_b, lens_b = put(codes, -1), put(lens, 0)
-    hint_b = [None] * n_shard if hint_arr is None else put(hint_arr, -1)
-    dms = put_replicated(mesh, dm)
+    with span("map.prep", also=part):
+        put = lambda a, fill: put_read_sharded(
+            mesh, _pad_reads_axis(a, n_shard, fill), 0)
+        codes_b, lens_b = put(codes, -1), put(lens, 0)
+        hint_b = [None] * n_shard if hint_arr is None else put(hint_arr, -1)
+        dms = put_replicated(mesh, dm)
     parts = []
-    for i in range(n_shard):
-        real = min(per, B - i * per)
-        if real <= 0:
-            break  # the rest of the shards hold padding only
-        if dms[i] is None:
-            parts += [None, None, None]
-            continue
-        logp, mn_d, ml_d = decode(dms[i], codes_b[i][:real], lens_b[i][:real],
-                                  None if hint_b[i] is None else hint_b[i][:real])
-        parts += [logp.to(torch.float64), mn_d, ml_d]
-    got = gather_to_host(parts, mesh)
-    return (np.concatenate(got[0::3]), np.concatenate(got[1::3]),
-            np.concatenate(got[2::3]))
+    with span("map.launch", also=part):
+        for i in range(n_shard):
+            real = min(per, B - i * per)
+            if real <= 0:
+                break  # the rest of the shards hold padding only
+            if dms[i] is None:
+                parts += [None, None, None]
+                continue
+            logp, mn_d, ml_d = decode(
+                dms[i], codes_b[i][:real], lens_b[i][:real],
+                None if hint_b[i] is None else hint_b[i][:real])
+            parts += [logp.to(torch.float64), mn_d, ml_d]
+    with span("map.fetch", also=part):
+        got = gather_to_host(parts, mesh)
+        count("fetch_bytes", sum(a.nbytes for a in got))
+        return (np.concatenate(got[0::3]), np.concatenate(got[1::3]),
+                np.concatenate(got[2::3]))
 
 
 # -- score --------------------------------------------------------------------
@@ -613,38 +604,37 @@ def score_candidates(
     given, must be that mesh (the rescue shares the scorer's shards)."""
     if mesh is not None and mesh is not scorer.mesh:
         raise ValueError("score_candidates: the scorer was built on another mesh")
-    t0 = time.perf_counter()
-    lls, ok = scorer.scores_detailed(candidates)
-    bad = (np.flatnonzero(~ok) if scorer.space == "linear"
-           else np.empty(0, dtype=np.int64))
-    if bad.size:
-        exact, _ = scorer.log_sibling().scores_detailed(
-            [candidates[i] for i in bad])
-        lls[bad] = exact
-    t_like = time.perf_counter() - t0
-    if times is not None:
-        times.score_s += t_like
-        times.n_scorings += (len(candidates) + bad.size) * scorer.n_reads
-        times.n_rescued += int(bad.size)
+    with collecting(times):
+        with span("sample.reads", clock=True) as reads_span:
+            lls, ok = scorer.scores_detailed(candidates)
+            bad = (np.flatnonzero(~ok) if scorer.space == "linear"
+                   else np.empty(0, dtype=np.int64))
+            if bad.size:
+                exact, _ = scorer.log_sibling().scores_detailed(
+                    [candidates[i] for i in bad])
+                lls[bad] = exact
+        count("n_scorings", (len(candidates) + bad.size) * scorer.n_reads)
+        count("n_rescued", int(bad.size))
 
-    scores = []
-    flow = _CompactFlow(dbg)
-    # candidates are +-1-cycle neighbours of the base assignment: the
-    # log-det factors once and each candidate is a rank-r update
-    ecache = EulerCache(dbg.compact, dbg.get_copy_nums())
-    for cn, ll in zip(candidates, lls):
-        t1 = time.perf_counter()
-        size = flow.genome_size(cn)
-        n_ec = ecache.count(cn)
-        scores.append(Score(
-            likelihood=float(ll),
-            prior=normal_bin_logp(size, float(genome_size_expected),
-                                  float(genome_size_sigma)),
-            genome_size=size,
-            n_euler_circuits=n_ec,
-            time_likelihood=t_like / len(candidates),
-            time_euler=time.perf_counter() - t1,
-        ))
+        with span("sample.prior"):
+            scores = []
+            flow = _CompactFlow(dbg)
+            # candidates are +-1-cycle neighbours of the base assignment:
+            # the log-det factors once and each candidate is a rank-r update
+            ecache = EulerCache(dbg.compact, dbg.get_copy_nums())
+            for cn, ll in zip(candidates, lls):
+                t1 = time.perf_counter()
+                size = flow.genome_size(cn)
+                n_ec = ecache.count(cn)
+                scores.append(Score(
+                    likelihood=float(ll),
+                    prior=normal_bin_logp(size, float(genome_size_expected),
+                                          float(genome_size_sigma)),
+                    genome_size=size,
+                    n_euler_circuits=n_ec,
+                    time_likelihood=reads_span.s / len(candidates),
+                    time_euler=time.perf_counter() - t1,
+                ))
     return scores
 
 
@@ -679,132 +669,144 @@ def sample_posterior(
         neighbor_config = NeighborConfig()
     log = (lambda *a: print("[posterior]", *a)) if verbose else (lambda *a: None)
 
-    post = Posterior()
-    copy_nums = dbg.get_copy_nums()
-    infos: List[UpdateInfo] = []
-    work = dbg.copy()
-    t0 = time.perf_counter()
-    codes, lens = pad_reads(list(reads))
-    template = make_template(dbg, params)
-    if mappings is None:
-        freqs = np.ones(dbg.n_edges_full())
-        scorer = BatchScorer(template, codes, lens, device, mesh=mesh)
-        what = "dense batch scorer"
-    else:
-        freqs = mappings.to_node_freqs(dbg.n_edges_full())
-        width = max((n.shape[1] for n in mappings.nodes if n.size), default=8)
-        map_nodes = pad_mappings(mappings, codes.shape[1], width)
-        # a read with an entirely empty mapping scores -inf under every
-        # candidate and carries no signal: drop it from scoring
-        alive = (map_nodes >= 0).any(axis=(1, 2))
-        if not alive.all():
-            dead = np.flatnonzero(~alive)
-            print(f"[posterior] excluding {len(dead)} read(s) with empty "
-                  f"mappings from scoring: {dead.tolist()}")
-            keep = np.flatnonzero(alive)
-            codes, lens = codes[keep], lens[keep]
-            map_nodes = map_nodes[keep]
-            reads = [reads[int(i)] for i in keep]
-        positions = precompute_positions(
-            map_nodes, template.parent_idx, parent_exists=template.parent_exists
-        )
-        scorer = make_scorer(template, positions, codes, lens, template.params,
-                             device, space=scorer_space, mesh=mesh)
-        what = f"positions and scorer streams (width={width}, " \
-               f"{len(scorer.chunks)} read chunk(s))"
-    _sync(device, mesh)
-    t_setup = time.perf_counter() - t0
-    if times is not None:
-        times.setup_s += t_setup
-    log(f"setup: template, {what} {t_setup:.1f}s")
-    coverage = sum(len(r) for r in reads) / genome_size_expected
+    with collecting(times), outermost("sample"):
+        post = Posterior()
+        copy_nums = dbg.get_copy_nums()
+        infos: List[UpdateInfo] = []
+        with span("sample.setup", clock=verbose) as setup:
+            codes, lens = pad_reads(list(reads))
+            template = make_template(dbg, params)
+            if mappings is None:
+                freqs = np.ones(dbg.n_edges_full())
+                scorer = BatchScorer(template, codes, lens, device, mesh=mesh)
+                what = "dense batch scorer"
+            else:
+                freqs = mappings.to_node_freqs(dbg.n_edges_full())
+                width = max((n.shape[1] for n in mappings.nodes if n.size),
+                            default=8)
+                map_nodes = pad_mappings(mappings, codes.shape[1], width)
+                # a read with an entirely empty mapping scores -inf under
+                # every candidate and carries no signal: drop it from scoring
+                alive = (map_nodes >= 0).any(axis=(1, 2))
+                if not alive.all():
+                    dead = np.flatnonzero(~alive)
+                    print(f"[posterior] excluding {len(dead)} read(s) with "
+                          f"empty mappings from scoring: {dead.tolist()}")
+                    keep = np.flatnonzero(alive)
+                    codes, lens = codes[keep], lens[keep]
+                    map_nodes = map_nodes[keep]
+                    reads = [reads[int(i)] for i in keep]
+                positions = precompute_positions(
+                    map_nodes, template.parent_idx,
+                    parent_exists=template.parent_exists)
+                scorer = make_scorer(template, positions, codes, lens,
+                                     template.params, device,
+                                     space=scorer_space, mesh=mesh)
+                what = f"positions and scorer streams (width={width}, " \
+                       f"{len(scorer.chunks)} read chunk(s))"
+            _sync(device, mesh)
+        log(f"setup: template, {what} {setup.s:.1f}s")
+        coverage = sum(len(r) for r in reads) / genome_size_expected
 
-    def score(cands):
-        return score_candidates(work, cands, genome_size_expected,
-                                genome_size_sigma, scorer, times, mesh=mesh)
+        def score(cands):
+            return score_candidates(work, cands, genome_size_expected,
+                                    genome_size_sigma, scorer, times,
+                                    mesh=mesh)
 
-    def evaluate_batch(cands_infos, infos_init):
-        seen = set()
-        uniq = []
-        for cn, info in cands_infos:
-            key = tuple(cn)
-            if not post.contains(cn) and key not in seen:
-                seen.add(key)
-                uniq.append((cn, info))
-        if not uniq:
-            return
-        t1 = time.perf_counter()
-        scores = score([cn for cn, _i in uniq])
-        log(f"  scored {len(uniq)} candidates in {time.perf_counter()-t1:.1f}s")
-        for (cn, info), sc in zip(uniq, scores):
-            post.add(PosteriorSample(cn, sc, infos_init + [info]))
+        def evaluate_batch(cands_infos, infos_init):
+            seen = set()
+            uniq = []
+            for cn, info in cands_infos:
+                key = tuple(cn)
+                if not post.contains(cn) and key not in seen:
+                    seen.add(key)
+                    uniq.append((cn, info))
+            if not uniq:
+                return
+            count("candidates_scored", len(uniq))
+            scores = score([cn for cn, _i in uniq])
+            took = sum(sc.time_likelihood + sc.time_euler for sc in scores)
+            log(f"  scored {len(uniq)} candidates in {took:.1f}s")
+            for (cn, info), sc in zip(uniq, scores):
+                post.add(PosteriorSample(cn, sc, infos_init + [info]))
 
-    post.add(PosteriorSample(copy_nums, score([copy_nums])[0], []))
+        with span("sample.move"):
+            work = dbg.copy()  # the climb's graph, at each move's numbers
+            post.add(PosteriorSample(copy_nums, score([copy_nums])[0], []))
 
-    n_iter = 0
-    while n_iter < max_iter:
-        work.set_copy_nums(copy_nums)
-        t1 = time.perf_counter()
-        nc = neighbor_config
-        rescue = to_rescue_neighbors(
-            work, freqs, coverage,
-            nc.rescue_k_non_zero, nc.rescue_k_zero,
-            nc.rescue_weighted_by_copy_num, nc.rescue_k_total,
-            nc.rescue_sort_by_freq,
-        )
-        log(f"iter {n_iter}: {len(rescue)} rescue neighbors "
-            f"({time.perf_counter()-t1:.1f}s)")
-        if rescue_only:
-            sets = [rescue]
-        else:
-            partial = to_neighbor_copy_nums_and_infos(
-                work,
-                NeighborConfig(
-                    max_cycle_size=5, max_flip=2, use_long_cycles=True,
-                    ignore_cycles_passing_terminal=True, use_reducers=False,
-                ),
-            )
-            full = to_neighbor_copy_nums_and_infos(work, neighbor_config)
-            sets = [rescue, partial, full]
-
-        moved = False
-        for cands in sets:
-            if not cands:
-                continue
-            evaluate_batch(cands, infos)
-            # multi-move in rescue_only mode (ref: posterior.rs:532-590)
-            if rescue_only:
-                current_score = post.find(copy_nums).score
-                ranked = sorted(
-                    (c for c in cands if post.contains(c[0])),
-                    key=lambda c: post.find(c[0]).score.p(),
-                    reverse=True,
+        n_iter = 0
+        while n_iter < max_iter:
+            with span("sample.neighbors", clock=verbose) as neighbors:
+                work.set_copy_nums(copy_nums)
+                nc = neighbor_config
+                rescue = to_rescue_neighbors(
+                    work, freqs, coverage,
+                    nc.rescue_k_non_zero, nc.rescue_k_zero,
+                    nc.rescue_weighted_by_copy_num, nc.rescue_k_total,
+                    nc.rescue_sort_by_freq,
                 )
-                cur = list(copy_nums)
-                accepted = []
-                for cn, info in ranked:
-                    if post.find(cn).score.p() <= current_score.p():
-                        break
-                    cyc = info.cycle()
-                    if is_independent_update(accepted, cyc):
-                        apply_update_cycle(cur, cyc)
-                        accepted.append(cyc)
-                if accepted and not post.contains(cur):
-                    mm_info = UpdateInfo(accepted, "multi_move")
-                    post.add(PosteriorSample(cur, score([cur])[0],
-                                             infos + [mm_info]))
+                log(f"iter {n_iter}: {len(rescue)} rescue neighbors "
+                    f"({neighbors.elapsed():.1f}s)")
+                if rescue_only:
+                    sets = [rescue]
+                else:
+                    partial = to_neighbor_copy_nums_and_infos(
+                        work,
+                        NeighborConfig(
+                            max_cycle_size=5, max_flip=2, use_long_cycles=True,
+                            ignore_cycles_passing_terminal=True,
+                            use_reducers=False,
+                        ),
+                    )
+                    full = to_neighbor_copy_nums_and_infos(work,
+                                                           neighbor_config)
+                    sets = [rescue, partial, full]
+            count("candidates", sum(len(c) for c in sets))
 
-            best = post.max_sample()
-            if best.copy_nums != copy_nums:
-                copy_nums = best.copy_nums
-                infos = best.infos
-                n_iter += 1
-                moved = True
-                log(f"moved to p={best.score.p():.3f} via {best.to_infos_string()}")
+            moved = False
+            with span("sample.move"):
+                for cands in sets:
+                    if not cands:
+                        continue
+                    evaluate_batch(cands, infos)
+                    # multi-move in rescue_only mode
+                    # (ref: posterior.rs:532-590)
+                    if rescue_only:
+                        current_score = post.find(copy_nums).score
+                        ranked = sorted(
+                            (c for c in cands if post.contains(c[0])),
+                            key=lambda c: post.find(c[0]).score.p(),
+                            reverse=True,
+                        )
+                        cur = list(copy_nums)
+                        accepted = []
+                        for cn, info in ranked:
+                            if post.find(cn).score.p() <= current_score.p():
+                                break
+                            cyc = info.cycle()
+                            if is_independent_update(accepted, cyc):
+                                apply_update_cycle(cur, cyc)
+                                accepted.append(cyc)
+                        if accepted and not post.contains(cur):
+                            mm_info = UpdateInfo(accepted, "multi_move")
+                            post.add(PosteriorSample(cur, score([cur])[0],
+                                                     infos + [mm_info]))
+
+                    best = post.max_sample()
+                    if best.copy_nums != copy_nums:
+                        copy_nums = best.copy_nums
+                        infos = best.infos
+                        n_iter += 1
+                        count("climb_iters")
+                        moved = True
+                        log(f"moved to p={best.score.p():.3f} via "
+                            f"{best.to_infos_string()}")
+                        break
+            if not moved:
+                log(f"iter {n_iter}: local optimum")
                 break
-        if not moved:
-            log(f"iter {n_iter}: local optimum")
-            break
+        with span("sample.move"):  # the climb's state, freed with its moves
+            del work, scorer, template
     return post
 
 
@@ -825,6 +827,7 @@ def purge_and_extend_with_posterior(
         if (work.copy_num_of_edge_in_compact(e) == 0
                 and posterior.p_edge_x(e, 0) > lp0):
             edges_purge.append(e)
+    count("edges_purged", len(edges_purge))
     if paths is not None and edges_purge:
         # per-edge forensics before the purge maps are gone
         true_full = set()
@@ -881,110 +884,125 @@ def infer_posterior_by_extension(
     log = (lambda *a: print("[infer]", *a)) if verbose else (lambda *a: None)
     device = torch.device(device)
     dbg = dbg_init.copy()
-    t_stage = time.perf_counter()
-    times = StageTimes(k=dbg.k)
-    if mappings is None:
-        mappings = generate_mappings(dbg, param_error, reads, device,
-                                     times=times, mesh=mesh)
     coverage = sum(len(r) for r in reads) / genome_size_expected
+    maps2 = None  # the purge's per-read node sets, upconverted to k+1
+    first = True
+    while True:
+        times = StageTimes(k=dbg.k)
+        with collecting(times), span("stage"):
+            if first and mappings is None:
+                with span("map"):
+                    mappings = generate_mappings(dbg, param_error, reads,
+                                                 device, times=times,
+                                                 mesh=mesh)
+            elif not first:
+                with span("map") as mapped:
+                    hint_m = None
+                    if (dbg.n_edges_full() > DENSE_COMPUTE_MAX_NODES
+                            and seeded_mapping_enabled()):
+                        # seeded regime: seeding each stage beats
+                        # upconverting the previous stage's sets, so the
+                        # hint is not carried
+                        maps2 = None
+                    elif getattr(mappings, "gate_rate", 0.0) >= 0.99:
+                        maps2 = None  # the last hint decode was junk for
+                        # every read
+                    if use_hint_mappings and maps2 is not None:
+                        hint_m = Mappings(
+                            maps2, [np.zeros(a.shape) for a in maps2],
+                            mappings.read_logps, mappings.anchor_logps,
+                            mappings.stages_since_anchor,
+                        )
+                    mappings = generate_mappings(
+                        dbg, param_error, reads, device, hint=hint_m,
+                        verbose=verbose, times=times, mesh=mesh,
+                    )
+                log(f"mappings "
+                    f"{'refined' if hint_m is not None else 'regenerated'} "
+                    f"in {mapped.s:.1f}s")
+                with span("reinit") as reinit:
+                    freqs = mappings.to_node_freqs(dbg.n_edges_full())
+                    # guard: capped node freqs are bounded by the per-read
+                    # caps; a blown-up value means a junk mapping, so
+                    # decode from scratch
+                    limit = max(mappings.mass_cap_total(), 1.0)
+                    if freqs.max(initial=0.0) > limit:
+                        print(f"[infer] mapping freqs blown up (max "
+                              f"{freqs.max():.0f} > {limit:.0f}); "
+                              "regenerating mappings from scratch")
+                        mappings = generate_mappings(
+                            dbg, param_error, reads, device, verbose=verbose,
+                            times=times, mesh=mesh)
+                        freqs = mappings.to_node_freqs(dbg.n_edges_full())
+                    # the reference hardcodes 2 haplotypes here
+                    # (posterior.rs:798); the count is fixed only when a
+                    # terminal node exists
+                    nh = n_haplotypes if n_haplotypes is not None else 2
+                    if dbg.terminal_node_compact() is None:
+                        nh = None
+                    cn = min_squared_error_copy_nums_from_freqs(
+                        dbg, freqs, coverage, nh,
+                        fallback_copy_nums=dbg.get_copy_nums()
+                    )
+                    dbg.set_copy_nums(cn)
+                log(f"copy nums re-initialized from freqs in {reinit.s:.1f}s")
+            first = False
+            with span("sample") as sampled:
+                posterior = sample_posterior(
+                    dbg, param_infer, reads, mappings, genome_size_expected,
+                    genome_size_sigma, device, neighbor_config, max_iter,
+                    rescue_only=True, verbose=verbose, times=times,
+                    scorer_space=scorer_space, mesh=mesh,
+                )
+                with span("sample.move"):
+                    dbg.set_copy_nums(posterior.max_copy_nums())
+            log(f"k={dbg.k} posterior sampled in {sampled.s:.1f}s "
+                f"({len(posterior.samples)} samples)")
 
-    def close_stage(next_k: int) -> StageTimes:
-        nonlocal t_stage
-        now = time.perf_counter()
-        times.wall_s = now - t_stage
-        t_stage = now
+            if on_iter is not None:
+                on_iter(dbg, posterior, paths, mappings)
+
+            done = dbg.k >= k_max
+            if not done:
+                with span("purge_extend") as extended:
+                    n_true_before = (
+                        sum(1 for p in paths if p is not None)
+                        if paths is not None else 0
+                    )
+                    dbg, paths, maps2 = purge_and_extend_with_posterior(
+                        dbg, posterior, k_max, p0, paths,
+                        mappings if use_hint_mappings else None,
+                    )
+                    if paths is not None:
+                        n_true_after = sum(1 for p in paths if p is not None)
+                        if n_true_after < n_true_before:
+                            print(f"[infer] TRUTH LOST: purge at k={dbg.k} "
+                                  f"removed edges of "
+                                  f"{n_true_before - n_true_after} true "
+                                  f"haplotype path(s) ({n_true_after} still "
+                                  "tracked)")
+                log(f"extended to k={dbg.k} in {extended.s:.1f}s")
         if stage_times is not None:
             stage_times.append(times)
-        return StageTimes(k=next_k)
-
-    while True:
-        t0 = time.perf_counter()
-        posterior = sample_posterior(
-            dbg, param_infer, reads, mappings, genome_size_expected,
-            genome_size_sigma, device, neighbor_config, max_iter,
-            rescue_only=True, verbose=verbose, times=times,
-            scorer_space=scorer_space, mesh=mesh,
-        )
-        dbg.set_copy_nums(posterior.max_copy_nums())
-        log(f"k={dbg.k} posterior sampled in {time.perf_counter()-t0:.1f}s "
-            f"({len(posterior.samples)} samples)")
-
-        if on_iter is not None:
-            on_iter(dbg, posterior, paths, mappings)
-
-        if dbg.k >= k_max:
+        if done:
             break
 
-        t0 = time.perf_counter()
-        n_true_before = (
-            sum(1 for p in paths if p is not None) if paths is not None else 0
-        )
-        dbg, paths, maps2 = purge_and_extend_with_posterior(
-            dbg, posterior, k_max, p0, paths,
-            mappings if use_hint_mappings else None,
-        )
-        if paths is not None:
-            n_true_after = sum(1 for p in paths if p is not None)
-            if n_true_after < n_true_before:
-                print(f"[infer] TRUTH LOST: purge at k={dbg.k} removed "
-                      f"edges of {n_true_before - n_true_after} true "
-                      f"haplotype path(s) ({n_true_after} still tracked)")
-        log(f"extended to k={dbg.k} in {time.perf_counter()-t0:.1f}s")
-        times = close_stage(dbg.k)
-        t0 = time.perf_counter()
-        hint_m = None
-        if (dbg.n_edges_full() > DENSE_COMPUTE_MAX_NODES
-                and seeded_mapping_enabled()):
-            # seeded regime: seeding each stage beats upconverting the
-            # previous stage's sets, so the hint is not carried
-            maps2 = None
-        elif getattr(mappings, "gate_rate", 0.0) >= 0.99:
-            maps2 = None  # the previous hint decode was junk for every read
-        if use_hint_mappings and maps2 is not None:
-            hint_m = Mappings(
-                maps2, [np.zeros(a.shape) for a in maps2],
-                mappings.read_logps, mappings.anchor_logps,
-                mappings.stages_since_anchor,
-            )
-        mappings = generate_mappings(
-            dbg, param_error, reads, device, hint=hint_m, verbose=verbose,
-            times=times, mesh=mesh,
-        )
-        log(f"mappings {'refined' if hint_m is not None else 'regenerated'} "
-            f"in {time.perf_counter()-t0:.1f}s")
-        t0 = time.perf_counter()
-        freqs = mappings.to_node_freqs(dbg.n_edges_full())
-        # guard: capped node freqs are bounded by the per-read caps; a
-        # blown-up value means a junk mapping, so decode from scratch
-        limit = max(mappings.mass_cap_total(), 1.0)
-        if freqs.max(initial=0.0) > limit:
-            print(f"[infer] mapping freqs blown up (max {freqs.max():.0f} "
-                  f"> {limit:.0f}); regenerating mappings from scratch")
-            mappings = generate_mappings(dbg, param_error, reads, device,
-                                         verbose=verbose, times=times,
-                                         mesh=mesh)
-            freqs = mappings.to_node_freqs(dbg.n_edges_full())
-        # the reference hardcodes 2 haplotypes here (posterior.rs:798); the
-        # count is fixed only when a terminal node exists
-        nh = n_haplotypes if n_haplotypes is not None else 2
-        if dbg.terminal_node_compact() is None:
-            nh = None
-        cn = min_squared_error_copy_nums_from_freqs(
-            dbg, freqs, coverage, nh, fallback_copy_nums=dbg.get_copy_nums()
-        )
-        dbg.set_copy_nums(cn)
-        log(f"copy nums re-initialized from freqs in {time.perf_counter()-t0:.1f}s")
-
     # final full-neighbourhood sampling with the error params
-    times = close_stage(-1)
-    mappings = generate_mappings(dbg, param_error, reads, device, times=times,
-                                 mesh=mesh)
-    posterior = sample_posterior(
-        dbg, param_error, reads, mappings, genome_size_expected,
-        genome_size_sigma, device, neighbor_config, max_iter,
-        rescue_only=False, verbose=verbose, times=times,
-        scorer_space=scorer_space, mesh=mesh,
-    )
-    dbg.set_copy_nums(posterior.max_copy_nums())
-    close_stage(-1)
+    times = StageTimes(k=-1)
+    with collecting(times), span("stage"):
+        with span("map"):
+            mappings = generate_mappings(dbg, param_error, reads, device,
+                                         times=times, mesh=mesh)
+        with span("sample"):
+            posterior = sample_posterior(
+                dbg, param_error, reads, mappings, genome_size_expected,
+                genome_size_sigma, device, neighbor_config, max_iter,
+                rescue_only=False, verbose=verbose, times=times,
+                scorer_space=scorer_space, mesh=mesh,
+            )
+            with span("sample.move"):
+                dbg.set_copy_nums(posterior.max_copy_nums())
+    if stage_times is not None:
+        stage_times.append(times)
     return dbg, posterior, paths, mappings
+

@@ -41,6 +41,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..seq.collection import NULL_BASE
+from ..tracing import count, span, timer
 
 SEED_S = 32  # suffix key length (min'd with k); 32 keeps keys unique up to
 # repeat multiplicity on HiFi-scale genomes while making error gaps short
@@ -258,19 +259,23 @@ def seed_read(idx: SeedIndex, read: bytes) -> List[np.ndarray]:
     rb = np.frombuffer(bytes(read), dtype=np.uint8)
     L = len(rb)
     empty = np.empty(0, dtype=np.int64)
-    hits = _read_hits(idx, read)
+    with timer("seed_hits_s"):
+        hits = _read_hits(idx, read)
     if not hits:
+        count("reads_unseeded")
         return [empty] * L
-    fwd = _scored_pass(idx, rb, hits, forward=True)
-    bwd = _scored_pass(idx, rb, hits, forward=False)
-    out = []
-    for (fs, fc), (bs, bc) in zip(fwd, bwd):
-        if fs.size and bs.size:
-            u, _c = _combine([fs, bs], [fc, bc], np.inf, UNION_WIDTH)
-            out.append(u)
-        else:
-            out.append((fs if fs.size else bs)[:UNION_WIDTH])
-    return _backfill(idx, out)
+    with timer("seed_chain_s"):
+        fwd = _scored_pass(idx, rb, hits, forward=True)
+        bwd = _scored_pass(idx, rb, hits, forward=False)
+        out = []
+        for (fs, fc), (bs, bc) in zip(fwd, bwd):
+            if fs.size and bs.size:
+                u, _c = _combine([fs, bs], [fc, bc], np.inf, UNION_WIDTH)
+                out.append(u)
+            else:
+                out.append((fs if fs.size else bs)[:UNION_WIDTH])
+    with timer("seed_rows_s"):
+        return _backfill(idx, out)
 
 
 # -- native kernel (csrc/host/seedchain.cpp) -----------------------------------
@@ -325,52 +330,61 @@ def seed_read_native(idx: SeedIndex, read: bytes) -> Optional[List[np.ndarray]]:
     rb = np.frombuffer(bytes(read), dtype=np.uint8)
     L = len(rb)
     empty = np.empty(0, dtype=np.int64)
-    hits = _read_hits(idx, read)
+    with timer("seed_hits_s"):
+        hits = _read_hits(idx, read)
     if not hits:
+        count("reads_unseeded")
         return [empty] * L
-    hit_off = np.zeros(L + 1, dtype=np.int64)
-    for i, h in hits.items():
-        hit_off[i + 1] = h.size
-    np.cumsum(hit_off, out=hit_off)
-    hit_ids = np.concatenate([hits[i] for i in sorted(hits)]).astype(np.int64)
-    emis = np.ascontiguousarray(idx.keys[:, -1])
-    succ = np.ascontiguousarray(idx._succ_pad)
-    pred = np.ascontiguousarray(idx._pred_pad)
-    out_ids = np.empty((L, UNION_WIDTH), dtype=np.int64)
-    lib.dbg_seed_chain_union(
-        idx.n_edges, succ, pred, emis, L, rb, hit_ids, hit_off,
-        CHAIN_DECAY, CHAIN_STAY, CHAIN_HIT_COST, CHAIN_CMAX,
-        PASS_WIDTH, UNION_WIDTH, out_ids,
-    )
-    out = [row[row >= 0] for row in out_ids]
-    return _backfill(idx, out)
+    with timer("seed_chain_s"):
+        hit_off = np.zeros(L + 1, dtype=np.int64)
+        for i, h in hits.items():
+            hit_off[i + 1] = h.size
+        np.cumsum(hit_off, out=hit_off)
+        hit_ids = np.concatenate([hits[i] for i in sorted(hits)]).astype(
+            np.int64)
+        emis = np.ascontiguousarray(idx.keys[:, -1])
+        succ = np.ascontiguousarray(idx._succ_pad)
+        pred = np.ascontiguousarray(idx._pred_pad)
+        out_ids = np.empty((L, UNION_WIDTH), dtype=np.int64)
+        lib.dbg_seed_chain_union(
+            idx.n_edges, succ, pred, emis, L, rb, hit_ids, hit_off,
+            CHAIN_DECAY, CHAIN_STAY, CHAIN_HIT_COST, CHAIN_CMAX,
+            PASS_WIDTH, UNION_WIDTH, out_ids,
+        )
+    with timer("seed_rows_s"):
+        out = [row[row >= 0] for row in out_ids]
+        return _backfill(idx, out)
 
 
 def seed_mappings_arrays(dbg, reads, s: int = SEED_S,
                          verbose: bool = False) -> List[np.ndarray]:
     """Seeded candidate arrays per read ([L, W] int32, -1 pad) — the hint
     input to ``generate_mappings(hint=...)``/``mappings_refine``."""
-    import time
-
-    t0 = time.time()
-    idx = SeedIndex(dbg, s)
-    arrs = []
-    n_hit = n_pos = 0
-    widths = []
-    use_native = _seed_lib() is not None
-    for r in reads:
-        rb = bytes(r)
-        sets = seed_read_native(idx, rb) if use_native else seed_read(idx, rb)
-        W = max(1, max((len(x) for x in sets), default=1))
-        a = np.full((len(rb), W), -1, dtype=np.int32)
-        for i, x in enumerate(sets):
-            a[i, : len(x)] = x
-        arrs.append(a)
-        n_pos += len(rb)
-        n_hit += sum(1 for x in sets if len(x) > 0)
-        widths.append(W)
+    with span("map.seed", clock=verbose) as seeding:
+        with span("seed.index"):
+            idx = SeedIndex(dbg, s)
+        arrs = []
+        n_hit = n_pos = 0
+        widths = []
+        use_native = _seed_lib() is not None
+        for r in reads:
+            rb = bytes(r)
+            sets = (seed_read_native(idx, rb) if use_native
+                    else seed_read(idx, rb))
+            with timer("seed_rows_s"):
+                W = max(1, max((len(x) for x in sets), default=1))
+                a = np.full((len(rb), W), -1, dtype=np.int32)
+                for i, x in enumerate(sets):
+                    a[i, : len(x)] = x
+                arrs.append(a)
+                n_pos += len(rb)
+                n_hit += sum(1 for x in sets if len(x) > 0)
+                widths.append(W)
+                del sets  # freeing the read's row arrays is row work too
+        count("seed_positions", n_pos)
+        count("seed_hit_positions", n_hit)
     if verbose:
-        print(f"[seed] {len(arrs)} reads seeded in {time.time()-t0:.1f}s "
+        print(f"[seed] {len(arrs)} reads seeded in {seeding.s:.1f}s "
               f"(cover {n_hit}/{n_pos} = {n_hit/max(1,n_pos):.4f}, "
               f"max width median {int(np.median(widths))} "
               f"max {max(widths, default=0)})")

@@ -1,40 +1,10 @@
-"""Timers and resource tracking (ref: src/utils.rs:55-113).
-
-The reference stamps per-phase timings into the Score record and logs
-``[[phase]] k=.. t=..ms`` lines; these helpers back the same behavior.
+"""Resource tracking and edit distance (ref: src/utils.rs:88,
+bin/edit_dist.rs).  The port's timing is ``dbgphmm_tpu_torch.tracing``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import resource
-import time
-from typing import Callable, Tuple, TypeVar
-
-T = TypeVar("T")
-
-
-def timer(fn: Callable[[], T]) -> Tuple[T, float]:
-    """Run fn, return (result, elapsed milliseconds) (ref: utils.rs:55-79)."""
-    t0 = time.perf_counter()
-    out = fn()
-    return out, (time.perf_counter() - t0) * 1000.0
-
-
-def timer_us(fn: Callable[[], T]) -> Tuple[T, float]:
-    t0 = time.perf_counter()
-    out = fn()
-    return out, (time.perf_counter() - t0) * 1e6
-
-
-@contextlib.contextmanager
-def phase_timer(label: str, verbose: bool = True):
-    """``with phase_timer("posterior"):`` logs [[posterior]] t=..ms
-    (ref: posterior.rs:744-806 phase timestamps)."""
-    t0 = time.perf_counter()
-    yield
-    if verbose:
-        print(f"[[{label}]] t={(time.perf_counter() - t0) * 1000:.0f}ms")
 
 
 def check_memory_usage() -> float:

@@ -1,0 +1,8 @@
+"""StageTimes.map_fetch_s (the mapping's copy to the host, waiting for the
+device included (`map.fetch`)), seconds per mapping pass."""
+
+from perfbench.stage_split import per_pass
+
+
+def read(ctx):
+    return per_pass(ctx, "map", "map_fetch_s")
