@@ -50,9 +50,10 @@ mapping's ``map_prep_s``, ``map_launch_s``, ``map_fetch_s`` (the copy to
 the host, waiting for the device included), ``map_gate_s``; the climb's
 ``neighbors_s``, ``prior_s``, ``move_s``; ``extend_s``, ``reinit_s``; and
 ``untraced_s``, the wall time no named span covers.  Its counters:
-``reads``, ``reads_unseeded``, ``seed_cover``, ``reads_gated``,
-``fetch_bytes``, ``kept_bytes``, ``climb_iters``, ``candidates``,
-``candidates_scored``, ``edges_purged``, ``n_scorings``, ``n_rescued``.
+``reads``, ``reads_unseeded``, ``seed_cover``, ``seed_rows_backfilled``,
+``reads_gated``, ``fetch_bytes``, ``kept_bytes``, ``climb_iters``,
+``candidates``, ``candidates_scored``, ``edges_purged``, ``n_scorings``,
+``n_rescued``.
 """
 
 from __future__ import annotations

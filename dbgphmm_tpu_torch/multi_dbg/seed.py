@@ -255,7 +255,7 @@ def _read_hits(idx: SeedIndex, read: bytes):
 
 def seed_read(idx: SeedIndex, read: bytes) -> List[np.ndarray]:
     """Per-position candidate edge sets for one read (pure-Python path;
-    production uses :func:`seed_read_native` when the C++ kernel loads)."""
+    production uses :func:`seed_block_native` when the C++ kernel loads)."""
     rb = np.frombuffer(bytes(read), dtype=np.uint8)
     L = len(rb)
     empty = np.empty(0, dtype=np.int64)
@@ -314,6 +314,13 @@ def _seed_lib():
             ctypes.c_int32, ctypes.c_int32,
             np.ctypeslib.ndpointer(np.int64),
         ]
+        lib.dbg_seed_backfill_rows.restype = ctypes.c_int
+        i64, i32 = (np.ctypeslib.ndpointer(t, flags="C_CONTIGUOUS")
+                    for t in (np.int64, np.int32))
+        lib.dbg_seed_backfill_rows.argtypes = [
+            ctypes.c_int32, i64, ctypes.c_int32, i64, i64,
+            ctypes.c_int32, ctypes.c_int32, i32, i64,
+        ]
         _SEED_LIB = lib
     except Exception as e:  # pragma: no cover - toolchain issues
         print(f"[seed.native] build/load failed, using Python chain DP: {e}",
@@ -322,38 +329,73 @@ def _seed_lib():
     return _SEED_LIB
 
 
-def seed_read_native(idx: SeedIndex, read: bytes) -> Optional[List[np.ndarray]]:
-    """Native two-pass chain DP + union; None if the kernel is unavailable."""
+def _chain_union(lib, idx: SeedIndex, rb: np.ndarray, hits: dict,
+                 out_ids: np.ndarray) -> None:
+    """The native two-pass chain DP + union into ``out_ids`` ([L,
+    UNION_WIDTH] int64, -1 pad)."""
+    L = len(rb)
+    hit_off = np.zeros(L + 1, dtype=np.int64)
+    for i, h in hits.items():
+        hit_off[i + 1] = h.size
+    np.cumsum(hit_off, out=hit_off)
+    hit_ids = np.concatenate([hits[i] for i in sorted(hits)]).astype(
+        np.int64)
+    emis = np.ascontiguousarray(idx.keys[:, -1])
+    succ = np.ascontiguousarray(idx._succ_pad)
+    pred = np.ascontiguousarray(idx._pred_pad)
+    lib.dbg_seed_chain_union(
+        idx.n_edges, succ, pred, emis, L, rb, hit_ids, hit_off,
+        CHAIN_DECAY, CHAIN_STAY, CHAIN_HIT_COST, CHAIN_CMAX,
+        PASS_WIDTH, UNION_WIDTH, out_ids,
+    )
+
+
+def seed_block_native(idx: SeedIndex, read: bytes,
+                      bufs: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                      ) -> Optional[Tuple[np.ndarray, int]]:
+    """One read's candidate block ([L, W] int32, -1 pad, W the widest row
+    and at least 1) and its number of non-empty rows, from the native
+    chain DP, backfill and fill; None if the kernel is unavailable.
+    ``bufs`` are scratch buffers of at least L rows ([*, UNION_WIDTH]
+    int64, [*, WIDTH_CAP] int32) to reuse across reads."""
     lib = _seed_lib()
     if lib is None:
         return None
     rb = np.frombuffer(bytes(read), dtype=np.uint8)
     L = len(rb)
-    empty = np.empty(0, dtype=np.int64)
     with timer("seed_hits_s"):
         hits = _read_hits(idx, read)
     if not hits:
         count("reads_unseeded")
-        return [empty] * L
+        return np.full((L, 1), -1, dtype=np.int32), 0
+    if bufs is None or len(bufs[0]) < L:
+        bufs = _block_buffers(L)
     with timer("seed_chain_s"):
-        hit_off = np.zeros(L + 1, dtype=np.int64)
-        for i, h in hits.items():
-            hit_off[i + 1] = h.size
-        np.cumsum(hit_off, out=hit_off)
-        hit_ids = np.concatenate([hits[i] for i in sorted(hits)]).astype(
-            np.int64)
-        emis = np.ascontiguousarray(idx.keys[:, -1])
-        succ = np.ascontiguousarray(idx._succ_pad)
-        pred = np.ascontiguousarray(idx._pred_pad)
-        out_ids = np.empty((L, UNION_WIDTH), dtype=np.int64)
-        lib.dbg_seed_chain_union(
-            idx.n_edges, succ, pred, emis, L, rb, hit_ids, hit_off,
-            CHAIN_DECAY, CHAIN_STAY, CHAIN_HIT_COST, CHAIN_CMAX,
-            PASS_WIDTH, UNION_WIDTH, out_ids,
-        )
+        out_ids = bufs[0][:L]
+        _chain_union(lib, idx, rb, hits, out_ids)
     with timer("seed_rows_s"):
-        out = [row[row >= 0] for row in out_ids]
-        return _backfill(idx, out)
+        block = bufs[1][:L]
+        stats = np.empty(3, dtype=np.int64)
+        lib.dbg_seed_backfill_rows(
+            L, out_ids, UNION_WIDTH, idx._succ_pad, idx._pred_pad,
+            WIDTH_CAP, BRIDGE_CAP, block, stats)
+        W, n_hit, n_filled = (int(x) for x in stats)
+        count("seed_rows_backfilled", n_filled)
+        return block[:, :W].copy(), n_hit
+
+
+def _block_buffers(L: int) -> Tuple[np.ndarray, np.ndarray]:
+    return (np.empty((L, UNION_WIDTH), dtype=np.int64),
+            np.empty((L, WIDTH_CAP), dtype=np.int32))
+
+
+def seed_read_native(idx: SeedIndex, read: bytes) -> Optional[List[np.ndarray]]:
+    """:func:`seed_block_native` as per-position candidate arrays, as
+    :func:`seed_read` returns them; None if the kernel is unavailable."""
+    res = seed_block_native(idx, read)
+    if res is None:
+        return None
+    return [row[row >= 0] for row in res[0]]
 
 
 def seed_mappings_arrays(dbg, reads, s: int = SEED_S,
@@ -363,27 +405,31 @@ def seed_mappings_arrays(dbg, reads, s: int = SEED_S,
     with span("map.seed", clock=verbose) as seeding:
         with span("seed.index"):
             idx = SeedIndex(dbg, s)
+        reads = [bytes(r) for r in reads]
         arrs = []
         n_hit = n_pos = 0
-        widths = []
         use_native = _seed_lib() is not None
-        for r in reads:
-            rb = bytes(r)
-            sets = (seed_read_native(idx, rb) if use_native
-                    else seed_read(idx, rb))
-            with timer("seed_rows_s"):
-                W = max(1, max((len(x) for x in sets), default=1))
-                a = np.full((len(rb), W), -1, dtype=np.int32)
-                for i, x in enumerate(sets):
-                    a[i, : len(x)] = x
-                arrs.append(a)
-                n_pos += len(rb)
-                n_hit += sum(1 for x in sets if len(x) > 0)
-                widths.append(W)
-                del sets  # freeing the read's row arrays is row work too
+        bufs = (_block_buffers(max(map(len, reads), default=0))
+                if use_native else None)
+        for rb in reads:
+            if use_native:
+                a, hit = seed_block_native(idx, rb, bufs)
+            else:
+                sets = seed_read(idx, rb)
+                with timer("seed_rows_s"):
+                    W = max(1, max((len(x) for x in sets), default=1))
+                    a = np.full((len(rb), W), -1, dtype=np.int32)
+                    for i, x in enumerate(sets):
+                        a[i, : len(x)] = x
+                    hit = sum(1 for x in sets if len(x) > 0)
+                    del sets  # freeing the read's row arrays is row work too
+            arrs.append(a)
+            n_pos += len(rb)
+            n_hit += hit
         count("seed_positions", n_pos)
         count("seed_hit_positions", n_hit)
     if verbose:
+        widths = [a.shape[1] for a in arrs]
         print(f"[seed] {len(arrs)} reads seeded in {seeding.s:.1f}s "
               f"(cover {n_hit}/{n_pos} = {n_hit/max(1,n_pos):.4f}, "
               f"max width median {int(np.median(widths))} "

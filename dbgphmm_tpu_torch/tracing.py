@@ -91,7 +91,7 @@ class StageTimes:
     n_rescued: int = 0  # linear-space candidates rescored in log space
     wall_s: float = 0.0
     # seeding's parts: the index; then, summed over reads, the suffix
-    # lookups, the chain DP, and the rows (unpacking, backfill, stacking)
+    # lookups, the chain DP, and the rows (the backfill and the block)
     seed_index_s: float = 0.0
     seed_hits_s: float = 0.0
     seed_chain_s: float = 0.0
@@ -119,6 +119,7 @@ class StageTimes:
     edges_purged: int = 0
     seed_positions: int = 0  # read positions seeded (for seed_cover)
     seed_hit_positions: int = 0  # of those, with a candidate
+    seed_rows_backfilled: int = 0  # empty rows the native backfill filled
     named_s: float = 0.0  # summed self time of the named spans
 
     def as_dict(self) -> dict:
