@@ -11,7 +11,9 @@ reads):
 * ``refine_ll_rel`` -- the same for a refined stage (R1, R2), against the
   reference's forward restricted to the sets the refine was given (the
   hint), or its full forward for a read the refine's gate sent back to a
-  decode from scratch;
+  decode from scratch.  A seeded map (a call without a hint that refined
+  its own seeded sets, above 32,768 full edges) never sends a read back,
+  so there every read is held to its seeded sets' forward;
 * ``post_gap`` -- the mapping's per-base sets against the reference's
   posteriors of the same decode (``perfbench.checks.set_gap``);
 * ``score_rel`` -- a candidate's total read log-likelihood from the scorer
@@ -22,9 +24,17 @@ reads):
   reference| over the same candidates (nats);
 * ``extend_faults`` -- (k+1)-mers of the next stage's graph that no two
   adjacent k-mers join, plus joins of positive-copy k-mers it lacks;
-* readings: ``set_loss``, the reference's full forward minus its forward
-  restricted to the mapping's sets (nats); ``climb_margin``, the most by
-  which a drawn candidate's reference score beats the chosen.
+* readings: ``set_loss``, the reference's full forward (in a seeded
+  stage, its forward over the seeded sets) minus its forward restricted to
+  the mapping's sets (nats); ``seed_loss``, in a seeded stage only, the
+  full forward minus the seeded sets' forward on ``SEED_CHECK_READS``
+  reads drawn from the seed, the longest among them (nats: what seeding
+  misses; the largest float for a read whose seeded set is empty);
+  ``climb_margin``, the most by which a drawn candidate's reference score
+  beats the chosen.
+
+In a seeded stage the full forward over every read, which held no limit
+there, is not run: at a KIR-class locus it took most of the check's time.
 """
 
 from __future__ import annotations
@@ -37,6 +47,9 @@ import torch
 from perfbench import checks, program
 from perfbench.reference import graph as G
 from perfbench.reference import phmm as P
+
+# reads a seeded stage runs the full forward over, for ``seed_loss``
+SEED_CHECK_READS = 4
 
 
 class Entry(program.Entry):
@@ -71,6 +84,14 @@ class Entry(program.Entry):
                      if not np.isfinite(post.max_sample().score.p()))
         return {"work": len(stages), "failed": failed, "stages": stages,
                 "calls": calls, "reads": reads}
+
+
+def _seeded(calls: list, mappings) -> bool:
+    """Whether ``mappings`` came from a call without a hint that made an
+    inner call with its seeded sets: the program refines those with
+    ``hint_regen=False`` and re-decodes no read from scratch."""
+    hints = [h is not None for _c, h, out in calls if out is mappings]
+    return any(hints) and not all(hints)
 
 
 def _posteriors(g, p_err, reads, codes, lens, hint, gated, dtype):
@@ -119,6 +140,7 @@ def numbers(entry: Entry, captured: dict, cfg: dict, traffic: dict,
         # the mapping saw the graph's copy numbers of its call; the climb
         # starts from the stage's first sample
         copies, hint = program.call_of(calls, maps)
+        seeded = _seeded(calls, maps)
         g = program.graph_of(dbg, copies)
         gs = program.graph_of(dbg, post.samples[0].copy_nums)
         graphs.append((gs, post.max_copy_nums()))
@@ -137,23 +159,32 @@ def numbers(entry: Entry, captured: dict, cfg: dict, traffic: dict,
         ref = _posteriors(g, p_err, reads, codes, lens, hint, gated,
                           torch.float64)
         within = ref[0][3]
-        # the full forward (with a hint), the forward over the mapping's
-        # sets and each candidate's, in one scan a dtype
+        # the full forward (where the refine's gate could send a read
+        # back), the forward over the mapping's sets and each candidate's,
+        # in one scan a dtype
+        gate = hint is not None and not seeded
         specs = [(None, p_err)] + [(c.copy_nums, p_sc) for c in cands]
         sets_rows = [maps.nodes] * (1 + len(cands))
-        if hint is not None:
+        if gate:
             specs, sets_rows = [(None, p_err)] + specs, [None] + sets_rows
         res = {v: checks.rows(g, specs, sets_rows, codes, lens, dt)
                for v, dt in variants.items()}
-        base = 0 if hint is None else 1
-        dense = within if hint is None else res["program"][0]
+        base = int(gate)
+        dense = res["program"][0] if gate else within
         restricted = res["program"][base]
-        if hint is not None:
+        if gate:
             # a read the refine's gate sent back was decoded from scratch
             gated = np.abs(ll - dense) < np.abs(ll - within)
             if gated.any():
                 ref = _posteriors(g, p_err, reads, codes, lens, hint, gated,
                                   torch.float64)
+        if seeded:
+            # what seeding misses, on a few reads: the full forward
+            few = _drawn(reads, rng)
+            c, ln = P.encode([reads[j] for j in few], device)
+            full = checks.rows(g, [(None, p_err)], [None], c, ln)[0]
+            for v in variants:
+                max_into(outs, v, "seed_loss", checks.loss(full, within[few]))
         got = {"program": (ll, maps.nodes, maps.logps)}
         for v, dt in variants.items():
             if v == "program":
@@ -176,13 +207,16 @@ def numbers(entry: Entry, captured: dict, cfg: dict, traffic: dict,
                     nodes[at], log[at]))
             if hint is None:
                 max_into(outs, v, "decode_ll_rel", checks.gap(x, dense))
+            elif not gate:
+                max_into(outs, v, "refine_ll_rel", checks.gap(x, within))
             else:
                 max_into(outs, v, "refine_ll_rel", float(np.minimum(
                     [checks.gap(a, b) for a, b in zip(x, within)],
                     [checks.gap(a, b) for a, b in zip(x, dense)]).max(
                         initial=0.0)))
             max_into(outs, v, "set_loss", checks.loss(dense, restricted))
-        del ref
+        # and the loops' last tables, so that none outlives its stage
+        del ref, nodes, log
         # the scorer leaves out reads whose mapping is empty
         alive = np.asarray([(n >= 0).any() for n in maps.nodes])
         ref_ll = res["program"][base + 1:, alive].sum(axis=1)
@@ -217,5 +251,15 @@ def numbers(entry: Entry, captured: dict, cfg: dict, traffic: dict,
     return outs
 
 
+def _drawn(reads: List[bytes], rng: np.random.Generator) -> np.ndarray:
+    """``SEED_CHECK_READS`` read indices drawn from the seed, the longest
+    among them, in read order."""
+    n = min(SEED_CHECK_READS, len(reads))
+    longest = int(np.argmax([len(r) for r in reads]))
+    rest = [j for j in range(len(reads)) if j != longest]
+    return np.asarray(sorted([longest] + list(
+        rng.choice(rest, n - 1, replace=False))))
+
+
 def max_into(outs: dict, v: str, key: str, x) -> None:
-    outs[v][key] = max(outs[v][key], x)
+    outs[v][key] = max(outs[v].get(key, x), x)
