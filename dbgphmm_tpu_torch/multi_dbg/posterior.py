@@ -674,37 +674,45 @@ def sample_posterior(
         copy_nums = dbg.get_copy_nums()
         infos: List[UpdateInfo] = []
         with span("sample.setup", clock=verbose) as setup:
-            codes, lens = pad_reads(list(reads))
-            template = make_template(dbg, params)
-            if mappings is None:
-                freqs = np.ones(dbg.n_edges_full())
-                scorer = BatchScorer(template, codes, lens, device, mesh=mesh)
-                what = "dense batch scorer"
-            else:
-                freqs = mappings.to_node_freqs(dbg.n_edges_full())
-                width = max((n.shape[1] for n in mappings.nodes if n.size),
-                            default=8)
-                map_nodes = pad_mappings(mappings, codes.shape[1], width)
-                # a read with an entirely empty mapping scores -inf under
-                # every candidate and carries no signal: drop it from scoring
-                alive = (map_nodes >= 0).any(axis=(1, 2))
-                if not alive.all():
-                    dead = np.flatnonzero(~alive)
-                    print(f"[posterior] excluding {len(dead)} read(s) with "
-                          f"empty mappings from scoring: {dead.tolist()}")
-                    keep = np.flatnonzero(alive)
-                    codes, lens = codes[keep], lens[keep]
-                    map_nodes = map_nodes[keep]
-                    reads = [reads[int(i)] for i in keep]
-                positions = precompute_positions(
-                    map_nodes, template.parent_idx,
-                    parent_exists=template.parent_exists)
-                scorer = make_scorer(template, positions, codes, lens,
-                                     template.params, device,
-                                     space=scorer_space, mesh=mesh)
-                what = f"positions and scorer streams (width={width}, " \
-                       f"{len(scorer.chunks)} read chunk(s))"
-            _sync(device, mesh)
+            with span("setup.template"):
+                template = make_template(dbg, params)
+            with span("setup.positions"):
+                codes, lens = pad_reads(list(reads))
+                if mappings is None:
+                    freqs = np.ones(dbg.n_edges_full())
+                else:
+                    freqs = mappings.to_node_freqs(dbg.n_edges_full())
+                    width = max((n.shape[1] for n in mappings.nodes
+                                 if n.size), default=8)
+                    map_nodes = pad_mappings(mappings, codes.shape[1], width)
+                    # a read with an entirely empty mapping scores -inf
+                    # under every candidate and carries no signal: drop it
+                    # from scoring
+                    alive = (map_nodes >= 0).any(axis=(1, 2))
+                    if not alive.all():
+                        dead = np.flatnonzero(~alive)
+                        print(f"[posterior] excluding {len(dead)} read(s) "
+                              f"with empty mappings from scoring: "
+                              f"{dead.tolist()}")
+                        keep = np.flatnonzero(alive)
+                        codes, lens = codes[keep], lens[keep]
+                        map_nodes = map_nodes[keep]
+                        reads = [reads[int(i)] for i in keep]
+                    positions = precompute_positions(
+                        map_nodes, template.parent_idx,
+                        parent_exists=template.parent_exists)
+            with span("setup.streams"):
+                if mappings is None:
+                    scorer = BatchScorer(template, codes, lens, device,
+                                         mesh=mesh)
+                    what = "dense batch scorer"
+                else:
+                    scorer = make_scorer(template, positions, codes, lens,
+                                         template.params, device,
+                                         space=scorer_space, mesh=mesh)
+                    what = (f"positions and scorer streams (width={width}, "
+                            f"{len(scorer.chunks)} read chunk(s))")
+                _sync(device, mesh)
         log(f"setup: template, {what} {setup.s:.1f}s")
         coverage = sum(len(r) for r in reads) / genome_size_expected
 
@@ -737,7 +745,8 @@ def sample_posterior(
         n_iter = 0
         while n_iter < max_iter:
             with span("sample.neighbors", clock=verbose) as neighbors:
-                work.set_copy_nums(copy_nums)
+                with span("neighbors.network"):
+                    work.set_copy_nums(copy_nums)
                 nc = neighbor_config
                 rescue = to_rescue_neighbors(
                     work, freqs, coverage,

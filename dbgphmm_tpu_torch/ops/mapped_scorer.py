@@ -717,12 +717,12 @@ class MappedScorer:
         B, L = codes.shape
         self.n_reads = B
         order = np.arange(B)
+        wbuck = np.zeros(B)
         if B > 1:
             # primary key: the pow2 width bucket of the read's widest
             # position; secondary: median compact id of its mapped nodes
             f2c = template.full_to_compact.astype(np.int64)
             keys = np.zeros(B)
-            wbuck = np.zeros(B)
             mn0 = positions.map_nodes
             for b in range(B):
                 v = mn0[b][mn0[b] >= 0]
@@ -744,10 +744,14 @@ class MappedScorer:
         rc = read_chunk or max(b_pad, int(9e9 // max(per_read, 1)) // b_pad * b_pad)
         rc = -(-rc // b_pad) * b_pad
         # the read blocks, (chunk, reads-axis index r, first sorted read,
-        # reads): each chunk, padded to b_pad, split into n_rs equal blocks
+        # reads): each chunk, padded to b_pad, split into n_rs equal blocks.
+        # A chunk ends every rc reads and where the width bucket changes, so
+        # that one wide read does not widen every read's streams
+        sb = wbuck[order]
+        starts = sorted(set(range(0, B, rc))
+                        | set((np.flatnonzero(sb[1:] != sb[:-1]) + 1).tolist()))
         self.blocks = []
-        for ci, c0 in enumerate(range(0, B, rc)):
-            c1 = min(B, c0 + rc)
+        for ci, (c0, c1) in enumerate(zip(starts, starts[1:] + [B])):
             per = -(-(c1 - c0) // b_pad) * b_pad // n_rs
             for r in range(n_rs):
                 lo = min(c1, c0 + r * per)

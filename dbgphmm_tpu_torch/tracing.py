@@ -31,8 +31,16 @@ the duration is marked)::
         map.gate [map_gate_s]            trim, per-read copies, the gate
       reinit [reinit_s]                  freqs, the guard, the MSE re-init
       sample                             sample_posterior
-        sample.setup [setup_s, duration] template, positions, scorer
-        sample.neighbors [neighbors_s]   neighbour generation
+        sample.setup [setup_s, duration] the scorer's set-up
+          setup.template [setup_template_s]    make_template
+          setup.positions [setup_positions_s]  read and mapping pads,
+                                               precompute_positions
+          setup.streams [setup_streams_s]      the scorer's streams, sync
+        sample.neighbors [neighbors_s, duration]  neighbour generation
+          neighbors.network [neighbors_network_s]  copy numbers, the flow
+                                               networks, residual graphs
+          (timers: neighbors_paths_s, the shortest paths of a 0x edge;
+           neighbors_cycles_s, cycles to flows and infos)
         sample.move [move_s]             dedup, multi-move, the choice
           sample.reads [score_s, duration]  the scorer
           sample.prior [prior_s]         genome size, Euler count, prior
@@ -59,7 +67,10 @@ SELF_FIELDS = {
     "map.launch": "map_launch_s",
     "map.fetch": "map_fetch_s",
     "map.gate": "map_gate_s",
-    "sample.neighbors": "neighbors_s",
+    "setup.template": "setup_template_s",
+    "setup.positions": "setup_positions_s",
+    "setup.streams": "setup_streams_s",
+    "neighbors.network": "neighbors_network_s",
     "sample.prior": "prior_s",
     "sample.move": "move_s",
     "purge_extend": "extend_s",
@@ -69,6 +80,7 @@ DURATION_FIELDS = {
     "stage": "wall_s",
     "map.seed": "seed_s",
     "sample.setup": "setup_s",
+    "sample.neighbors": "neighbors_s",
     "sample.reads": "score_s",
 }
 UNNAMED = ("stage", "map", "sample")  # they cover everything, name nothing
@@ -101,8 +113,17 @@ class StageTimes:
     map_launch_s: float = 0.0
     map_fetch_s: float = 0.0
     map_gate_s: float = 0.0
-    # the climb's parts and the stage's host steps
+    # the scorer set-up's parts (they sum to setup_s)
+    setup_template_s: float = 0.0
+    setup_positions_s: float = 0.0
+    setup_streams_s: float = 0.0
+    # the climb's parts and the stage's host steps; neighbour generation's
+    # three phases (rescue, and the final pass's short, long and reducer
+    # neighbourhoods alike) sum to neighbors_s
     neighbors_s: float = 0.0
+    neighbors_network_s: float = 0.0
+    neighbors_paths_s: float = 0.0
+    neighbors_cycles_s: float = 0.0
     prior_s: float = 0.0
     move_s: float = 0.0
     extend_s: float = 0.0
@@ -117,6 +138,8 @@ class StageTimes:
     candidates: int = 0  # neighbours generated
     candidates_scored: int = 0  # unique candidates scored
     edges_purged: int = 0
+    zero_edges: int = 0  # 0x compact edges of the climb graph, per sweep
+    rescue_paths: int = 0  # the rescue's k-shortest paths found for them
     seed_positions: int = 0  # read positions seeded (for seed_cover)
     seed_hit_positions: int = 0  # of those, with a candidate
     seed_rows_backfilled: int = 0  # empty rows the native backfill filled
@@ -165,11 +188,13 @@ class _Span:
         self.child, self.s, self._rf = 0, 0.0, None
 
     def __enter__(self):
+        # the annotation's cost falls inside the span's own time, not its
+        # parent's, so that a span's parts still sum to it under the profiler
+        _stack.append(self)
+        self.t0 = time.perf_counter_ns()
         if _profiler._is_profiler_enabled:
             self._rf = _profiler.record_function(self.name)
             self._rf.__enter__()
-        _stack.append(self)
-        self.t0 = time.perf_counter_ns()
         return self
 
     def elapsed(self) -> float:
@@ -177,6 +202,8 @@ class _Span:
         return (time.perf_counter_ns() - self.t0) * 1e-9
 
     def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         dur = time.perf_counter_ns() - self.t0
         _stack.pop()
         if _stack:
@@ -195,8 +222,6 @@ class _Span:
                 setattr(t, self.also, getattr(t, self.also) + own)
             if self.name not in UNNAMED:
                 t.named_s += own
-        if self._rf is not None:
-            self._rf.__exit__(*exc)
         return False
 
 

@@ -131,6 +131,59 @@ def test_seed_mappings_and_neighbours_match_jax(pair):
     assert res[1] == res[0] and len(res[0]) > 0
 
 
+# (genome arguments, k before the extension, read sampler seed): the
+# benchmark's seeded toy, where one read's seeded sets at k = 17 miss its
+# path by 479 nats, and a case of CASES
+KP1_CASES = {
+    "bench_toy": ((50, 4, 0, 0.02, 1, 60, 2, 0.02, 0), 16, 3_000_000_019),
+    "tandem_50x4": (CASES["tandem_50x4"][0], 16, 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KP1_CASES))
+def test_seeding_on_a_kp1_graph_matches_jax(case, tmp_path):
+    """seed_mappings_arrays on the k+1 graph that to_kp1_dbg extends from
+    the genome's k graph, over reads of the benchmark's sampler: equal
+    graphs and equal seeded arrays, so what seeding misses after an
+    extension is the JAX package's seeder's too."""
+    from perfbench import inputs
+
+    g_args, k, seed = KP1_CASES[case]
+    g = PORT.seq_genome.tandem_repeat_polyploid_with_unique_homo_ends(*g_args)
+    (tmp_path / "genome.txt").write_text("\n".join(str(s) for s in g) + "\n")
+    cfg = {"dataset": {"genome": "genome.txt", "reads": {
+        "kind": "full_length", "coverage": 3, "p_error": 0.001}}}
+    reads = inputs.reads(cfg, seed, 0, tmp_path)
+    got = []
+    for S in (JAX, PORT):
+        gs = S.seq_genome.tandem_repeat_polyploid_with_unique_homo_ends(*g_args)
+        dbg = S.multi_dbg.MultiDbg.from_styled_seqs(k, list(gs)).to_kp1_dbg()
+        assert dbg.k == k + 1
+        got.append((S.multi_dbg_output.to_dbg_string(dbg),
+                    S.multi_dbg_seed.seed_mappings_arrays(dbg, reads)))
+    (tj, sj), (tt, st) = got
+    assert tt == tj
+    assert len(st) == len(sj) == len(reads) > 3
+    for a, b in zip(st, sj):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert all((a >= 0).any(axis=1).all() for a in st)
+    if case == "bench_toy":
+        # the benchmark's float64 reference: the full forward less the
+        # forward over the seeded sets, per read
+        from perfbench import checks, program
+        from perfbench.reference import phmm as P
+
+        dbg = PORT.multi_dbg_output.from_dbg_string(tt)
+        codes, lens = P.encode(reads)
+        p = P.Params(0.001)
+        within, full = checks.rows(program.graph_of(dbg), [(None, p)] * 2,
+                                   [st, None], codes, lens)
+        loss = full - within
+        assert loss[2] == pytest.approx(479.23, abs=0.01)
+        assert (np.delete(loss, 2) < 0.01).all()
+
+
 def test_euler_counts_and_mse_copy_numbers_match_jax(pair):
     """EulerCache counts of the neighbourhood and the MSE copy numbers from
     node frequencies (the native flow solver)."""

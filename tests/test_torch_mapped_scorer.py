@@ -189,8 +189,11 @@ def test_scorer_matches_jax_with_mixed_width_read_chunks(setup):
     codes, lens, pos_w, pos_w_t = _widened(setup)
     scorer = T.MappedScorer(tpl_t, pos_w_t, codes, lens, tpl_t.params, "cpu",
                             read_chunk=8)
-    widths = sorted({s.emis.shape[2] for s in scorer.chunks})
-    assert len(scorer.chunks) == 3 and widths == [16, 64], widths
+    # 15 reads of A=16 then 5 of A=64 in width order: a chunk ends every 8
+    # reads and where the width bucket changes
+    widths = [s.emis.shape[2] for s in scorer.chunks]
+    assert widths == [16, 16, 64, 64], widths
+    assert [b[3] for b in scorer.blocks] == [8, 7, 1, 4], scorer.blocks
     sums, ok = scorer.scores_detailed(cands)
     ref = candidate_log_likelihoods([tpl.model_for(cn) for cn in cands],
                                     codes, lens, positions=pos_w)

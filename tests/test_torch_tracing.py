@@ -23,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import dbgphmm_tpu_torch.multi_dbg.posterior as TP
 from dbgphmm_tpu_torch import multi_dbg, tracing
+from dbgphmm_tpu_torch.multi_dbg import neighbors
 from dbgphmm_tpu_torch.phmm.params import PHMMParams
 from dbgphmm_tpu_torch.seq import collection, genome
 
@@ -92,10 +93,29 @@ def run(request):
                                      t1=self.t0 + dur, child=self.child))
         return out
 
+    # per climb sweep: (its collector, the climb graph's 0x compact edges);
+    # per k-shortest search: (its collector, the paths it returned)
+    sweeps, searches = [], []
+    rescue, paths = TP.to_rescue_neighbors, neighbors.k_shortest_simple_path
+
+    def noted_rescue(dbg, *a, **kw):
+        sweeps.append((tracing._times, sum(
+            dbg.copy_num_of_edge_in_compact(e) == 0
+            for e in range(dbg.n_edges_compact()))))
+        return rescue(dbg, *a, **kw)
+
+    def noted_paths(*a, **kw):
+        out = paths(*a, **kw)
+        searches.append((tracing._times, len(out)))
+        return out
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tracing._Span, "__exit__", recorded)
+        mp.setattr(TP, "to_rescue_neighbors", noted_rescue)
+        mp.setattr(neighbors, "k_shortest_simple_path", noted_paths)
         got = infer(request.param, mp)
     got.regime, got.spans = request.param, spans
+    got.sweeps, got.searches = sweeps, searches
     return got
 
 
@@ -163,6 +183,88 @@ def test_spans_nest_and_untraced_time_is_not_negative(run):
         assert 0 < st.named_s <= st.wall_s
 
 
+SETUP = ("setup.template", "setup.positions", "setup.streams")
+
+
+def test_setup_and_climb_parts_sum_to_their_spans(run):
+    """setup_s and neighbors_s are the durations of sample.setup and
+    sample.neighbors.  The setup.* fields are their spans' self times and
+    sum to setup_s less sample.setup's own time, a few microseconds a span
+    (the parts cover all of its work).  neighbors_network_s is its span's
+    self time; the paths and cycles timers lie in sample.neighbors' own
+    time, and the three sum to neighbors_s less the loops' glue."""
+    for st in run.stages:
+        mine = [sp for sp in run.spans if sp.times is st]
+
+        def total(*names):
+            return sum((sp.t1 - sp.t0) * 1e-9 for sp in mine
+                       if sp.name in names)
+
+        def own(*names):
+            return sum((sp.t1 - sp.t0 - sp.child) * 1e-9 for sp in mine
+                       if sp.name in names)
+
+        approx = lambda v: pytest.approx(v, rel=1e-9, abs=1e-12)
+        assert st.setup_s == approx(total("sample.setup"))
+        assert st.neighbors_s == approx(total("sample.neighbors"))
+        setup = (st.setup_template_s, st.setup_positions_s,
+                 st.setup_streams_s)
+        assert setup == tuple(approx(own(n)) for n in SETUP)
+        rescue = (st.neighbors_network_s, st.neighbors_paths_s,
+                  st.neighbors_cycles_s)
+        assert st.neighbors_network_s == approx(own("neighbors.network"))
+        timed = st.neighbors_paths_s + st.neighbors_cycles_s
+        assert 0 <= timed <= own("sample.neighbors")
+        assert all(x > 0 for x in setup)
+        assert st.setup_s - sum(setup) == approx(own("sample.setup"))
+        for parts, whole, parent in ((setup, st.setup_s, "sample.setup"),
+                                     (rescue, st.neighbors_s,
+                                      "sample.neighbors")):
+            rest = whole - sum(parts)
+            n = [sp.name for sp in mine].count(parent)
+            assert 0 <= rest <= n * 1e-3, (parent, rest, whole)
+    assert run.stages[0].neighbors_paths_s > 0  # the k=8 climb rescues
+    # the final pass's short and reducer neighbourhoods are cycles
+    assert run.stages[-1].neighbors_cycles_s > 0
+
+
+def test_setup_and_climb_parts_nest_in_their_spans(run):
+    """Each setup.* span lies directly inside a sample.setup, each
+    neighbors.network directly inside a sample.neighbors: a rescue sweep
+    opens it twice (the climb graph's copy numbers, then the MSE
+    networks); the final pass's full neighbourhood opens more."""
+    spans = sorted(run.spans, key=lambda sp: (sp.t0, -sp.t1))
+    stack = []
+    for sp in spans:
+        while stack and stack[-1].t1 <= sp.t0:
+            stack.pop()
+        if sp.name in SETUP:
+            assert stack[-1].name == "sample.setup"
+        if sp.name == "neighbors.network":
+            assert stack[-1].name == "sample.neighbors"
+        stack.append(sp)
+    for st in run.stages:
+        names = [sp.name for sp in run.spans if sp.times is st]
+        n = names.count("sample.setup")
+        assert [names.count(x) for x in SETUP] == [n] * 3
+        sweeps = names.count("sample.neighbors")
+        if st.k > 0:
+            assert names.count("neighbors.network") == 2 * sweeps
+        else:
+            assert names.count("neighbors.network") > 2 * sweeps
+
+
+def test_rescue_counters_count_the_climb(run):
+    """zero_edges is the climb graph's 0x compact edges summed over the
+    stage's sweeps; rescue_paths the paths its k-shortest searches
+    returned."""
+    assert run.sweeps and run.searches
+    for st in run.stages:
+        assert st.zero_edges == sum(n for t, n in run.sweeps if t is st)
+        assert st.rescue_paths == sum(n for t, n in run.searches if t is st)
+    assert run.stages[0].zero_edges > 0 and run.stages[0].rescue_paths > 0
+
+
 def test_counters_agree_with_the_run(run):
     """Candidates scored after dedup are among those generated, the kept
     bytes among those fetched, every read is mapped once a stage, and a
@@ -198,7 +300,7 @@ def test_the_stage_line_carries_every_field():
     assert fields <= set(d)
     assert {"reads", "reads_unseeded", "reads_gated", "fetch_bytes",
             "kept_bytes", "climb_iters", "candidates", "candidates_scored",
-            "edges_purged"} <= set(d)
+            "edges_purged", "zero_edges", "rescue_paths"} <= set(d)
     assert not {"named_s", "seed_positions", "seed_hit_positions"} & set(d)
     json.dumps(d)
 
